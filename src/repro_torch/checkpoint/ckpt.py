@@ -1,0 +1,86 @@
+"""Artifact checkpoints — counterpart of ``repro/checkpoint/ckpt.py``.
+
+An artifact is an npz of its arrays (``ckpt_<step>.npz``) beside a json of
+its static metadata (``meta_<step>.json``) holding a CRC32 of every array's
+bytes, written atomically.  The layout, the key names and the checksum are
+the reference's, so checkpoints load across the two packages in both
+directions.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import zlib
+
+import numpy as np
+
+__all__ = ["CorruptCheckpointError", "array_checksum", "latest_step",
+           "save_artifact", "load_artifact_arrays"]
+
+
+class CorruptCheckpointError(ValueError):
+    """An artifact array failed its recorded CRC32 on load (the message
+    names it)."""
+
+
+def array_checksum(arr) -> int:
+    """CRC32 of an array's raw (C-contiguous) bytes."""
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
+
+
+def latest_step(directory: str):
+    if not os.path.isdir(directory):
+        return None
+    steps = [
+        int(m.group(1))
+        for f in os.listdir(directory)
+        if (m := re.match(r"ckpt_(\d+)\.npz$", f))
+    ]
+    return max(steps) if steps else None
+
+
+def save_artifact(directory: str, step: int, arrays: dict, meta: dict) -> str:
+    """Write ``arrays`` ({key: numpy array}) and ``meta`` (json-ready, plus
+    ``array_checksums``) atomically; returns the npz path."""
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    tmp = path + ".tmp.npz"  # np.savez keeps the name when it ends in .npz
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+    meta = dict(meta)
+    meta["array_checksums"] = {k: array_checksum(v) for k, v in arrays.items()}
+    meta_path = os.path.join(directory, f"meta_{step:08d}.json")
+    tmpm = meta_path + ".tmp"
+    with open(tmpm, "w") as f:
+        json.dump(meta, f, indent=1)
+    os.replace(tmpm, meta_path)
+    return path
+
+
+def load_artifact_arrays(directory: str, step: int | None = None):
+    """(meta, {key: np.ndarray}) of an artifact checkpoint (the latest when
+    ``step`` is None).  Every array recorded in ``array_checksums`` is
+    verified; a mismatch or a missing array raises
+    :class:`CorruptCheckpointError`."""
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    with open(os.path.join(directory, f"meta_{step:08d}.json")) as f:
+        meta = json.load(f)
+    with np.load(os.path.join(directory, f"ckpt_{step:08d}.npz")) as data:
+        arrays = {k: data[k] for k in data.files}
+    for k, want in (meta.get("array_checksums") or {}).items():
+        if k not in arrays:
+            raise CorruptCheckpointError(
+                f"artifact checkpoint step {step} is missing array {k!r} "
+                f"recorded in meta_{step:08d}.json"
+            )
+        got = array_checksum(arrays[k])
+        if got != int(want):
+            raise CorruptCheckpointError(
+                f"artifact array {k!r} failed its checksum at step {step}: "
+                f"crc32 {got:#010x} != recorded {int(want):#010x}"
+            )
+    return meta, arrays

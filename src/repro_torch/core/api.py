@@ -1,0 +1,93 @@
+"""``DistributedGP`` — the port's front door, counterpart of
+``repro/core/api.py``::
+
+    from repro_torch.core import DGPConfig, DistributedGP
+
+    est = DistributedGP(DGPConfig(gram_backend="pallas"))  # on the card
+    art = est.fit(X, y, m=40)          # wire + train + factorize ONCE
+    mu, var = est.predict(art, X_query)
+    est.save(art, "ckpt/")             # est.load("ckpt/") serves identically
+
+The estimator runs on ``device`` — the CUDA card unless the caller passes
+another (``device="cpu"`` runs the plain PyTorch versions of the kernels);
+without CUDA, the default raises.  Artifacts live on the estimator's device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .config import DGPConfig
+from .gp import GPParams
+from .protocols import base as _base
+from .protocols.base import FittedProtocol
+
+__all__ = ["DistributedGP"]
+
+
+class DistributedGP:
+    """Estimator facade over one :class:`~repro_torch.core.config.DGPConfig`
+    on one device.  Stateless beyond the two: ``fit`` returns the artifact
+    and every other method takes it explicitly."""
+
+    def __init__(self, config: DGPConfig | None = None, device=None, **overrides):
+        if config is None:
+            config = DGPConfig(**overrides)
+        elif not isinstance(config, DGPConfig):
+            raise TypeError(
+                f"DistributedGP expects a DGPConfig, got {type(config).__name__}"
+            )
+        elif overrides:
+            config = dataclasses.replace(config, **overrides)
+        self.config = config
+        self.device = _base.resolve_device(device)
+
+    def __repr__(self):
+        return f"DistributedGP({self.config!r}, device={str(self.device)!r})"
+
+    def fit(self, X=None, y=None, m: int | None = None, *, parts=None,
+            generator: torch.Generator | None = None,
+            params: GPParams | None = None) -> FittedProtocol:
+        """Run the configured protocol ONCE and return the serving artifact.
+
+        Pass the pooled dataset ``(X, y, m)`` — split uniformly at random
+        across ``m`` machines by ``generator`` (seed 0 when None) — or
+        ``parts``, a list of per-machine ``(X_j, y_j)`` shards."""
+        if parts is None:
+            if X is None or y is None or m is None:
+                raise ValueError("fit() needs either (X, y, m) or parts=[(X_j, y_j), ...]")
+            parts = _base.split_machines(X, y, m, generator)
+        elif X is not None or y is not None or m is not None or generator is not None:
+            raise ValueError(
+                "pass either (X, y, m[, generator]) or parts, not both — parts "
+                "are already placed, so a split generator would be unused"
+            )
+        return _base.fit(parts, self.config, params, self.device)
+
+    def predict(self, art: FittedProtocol, X_star):
+        """Serve one query batch: (mean, var) at ``X_star`` from the cached
+        factors, on the artifact's device."""
+        return _base.predict(art, X_star)
+
+    def update(self, art, X_new, y_new, machine: int = 0):
+        raise NotImplementedError(
+            "streaming update() is not ported yet (queue 1, slice 3 in ROADMAP.md)"
+        )
+
+    def health(self, art, available=None):
+        raise NotImplementedError(
+            "health() / degraded serving is not ported yet (queue 1, slice 4 "
+            "in ROADMAP.md)"
+        )
+
+    def save(self, art: FittedProtocol, directory: str, step: int = 0) -> str:
+        """Checkpoint an artifact in the reference's format v6."""
+        if not isinstance(art, FittedProtocol):
+            raise TypeError("save() needs a FittedProtocol artifact")
+        return _base.save_artifact(art, directory, step)
+
+    def load(self, directory: str, step: int | None = None) -> FittedProtocol:
+        """Restore a checkpoint of either package onto this estimator's
+        device."""
+        return _base.load_artifact(directory, step, self.device)

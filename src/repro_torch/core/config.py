@@ -1,0 +1,121 @@
+"""``DGPConfig`` — counterpart of ``repro/core/config.py``.
+
+The same frozen dataclass with the same fields, defaults and validation, so
+a config (and the ``config`` block of a checkpoint's ``meta.json``) means
+the same in both packages.  ``gram_backend="pallas"`` selects the port's
+hand-written Hopper kernels (``gram``, ``qgram_packed``); ``"xla"`` the
+plain PyTorch path (matmuls).  Names the reference knows but the port has
+not built yet validate, and ``fit`` raises ``NotImplementedError`` naming
+their ROADMAP slice.  ``faults`` takes only ``None`` in this slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from . import quantizers as Q
+from .registry import FUSIONS, KERNELS, PROTOCOLS, SCHEMES
+
+__all__ = ["DGPConfig", "ARTIFACT_FORMAT_VERSION", "IMPLS", "GRAM_BACKENDS",
+           "GRAM_MODES", "TRAIN_IMPLS", "SERVE_EPILOGUES"]
+
+IMPLS = ("host", "batched", "mesh")
+GRAM_BACKENDS = ("xla", "pallas")
+GRAM_MODES = ("nystrom", "nystrom_fitc", "direct", "dense")
+TRAIN_IMPLS = ("scan", "loop")
+SERVE_EPILOGUES = ("fused", "unfused")
+
+# the reference's checkpoint format: packed uint32 wire words (v3),
+# per-array CRC32s (v4), stream/* leaves (v5), serve-cache keys (v6)
+ARTIFACT_FORMAT_VERSION = 6
+
+_FAULTS_SLICE = "fault injection is queue 1, slice 4 in ROADMAP.md"
+
+
+def _ensure_registered() -> None:
+    from . import protocols  # noqa: F401  (registers schemes + protocols)
+
+
+def _check_choice(kind: str, value: str, choices: tuple) -> None:
+    if value not in choices:
+        raise ValueError(
+            f"unknown {kind} {value!r}: known {kind}s are {', '.join(choices)}"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class DGPConfig:
+    """Validated, hashable description of one distributed-GP configuration.
+    The fields are the reference's; see ``repro.core.config.DGPConfig``."""
+
+    protocol: str = "center"
+    scheme: str = "per_symbol"
+    kernel: str = "se"
+    fusion: str = "kl"
+    impl: str = "batched"
+    gram_backend: str = "xla"
+    gram_mode: str = "nystrom"
+    bits_per_sample: int = 24
+    max_bits: int = Q.DEFAULT_MAX_BITS
+    steps: int = 150
+    lr: float = 0.05
+    train_impl: str = "scan"
+    center: int = 0
+    serve_epilogue: str = "fused"
+    faults: object = None
+
+    def __post_init__(self):
+        _ensure_registered()
+        for registry, value in (
+            (PROTOCOLS, self.protocol), (SCHEMES, self.scheme),
+            (KERNELS, self.kernel), (FUSIONS, self.fusion),
+        ):
+            registry.check(value)
+        _check_choice("impl", self.impl, IMPLS)
+        _check_choice("gram_backend", self.gram_backend, GRAM_BACKENDS)
+        _check_choice("gram_mode", self.gram_mode, GRAM_MODES)
+        _check_choice("train_impl", self.train_impl, TRAIN_IMPLS)
+        _check_choice("serve_epilogue", self.serve_epilogue, SERVE_EPILOGUES)
+        if self.bits_per_sample < 0:
+            raise ValueError(f"bits_per_sample must be >= 0, got {self.bits_per_sample}")
+        if self.max_bits < 0:
+            raise ValueError(f"max_bits must be >= 0, got {self.max_bits}")
+        if self.steps < 0:
+            raise ValueError(f"steps must be >= 0, got {self.steps}")
+        if self.center < 0:
+            raise ValueError(f"center must be >= 0, got {self.center}")
+        if self.gram_backend == "pallas" and self.impl != "batched":
+            raise ValueError(
+                f'gram_backend="pallas" requires impl="batched", got '
+                f"{self.impl!r}"
+            )
+        if self.scheme == "vq":
+            if self.protocol == "poe":
+                raise ValueError(
+                    'scheme="vq" does not apply to protocol="poe" '
+                    "(zero-rate: nothing crosses the wire)"
+                )
+            if self.impl != "batched":
+                raise ValueError(
+                    f'scheme="vq" supports impl="batched" only, got {self.impl!r}'
+                )
+            if self.gram_backend != "xla":
+                raise ValueError(
+                    'scheme="vq" has no int wire codes for the pallas qgram '
+                    'path: use gram_backend="xla"'
+                )
+        if self.faults is not None:
+            raise NotImplementedError(f"faults=... is not ported yet ({_FAULTS_SLICE})")
+
+    def asdict(self) -> dict:
+        """JSON-ready dict (checkpoint ``meta.json`` records this)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "DGPConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        d = {k: v for k, v in d.items() if k in known}
+        if d.get("faults") is not None:
+            raise NotImplementedError(
+                f"config carries a fault plan ({_FAULTS_SLICE})"
+            )
+        return cls(**d)

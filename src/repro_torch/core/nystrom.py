@@ -1,0 +1,106 @@
+"""Nyström completion of the gram matrix (paper §5, eq. 61) — counterpart
+of ``repro/core/nystrom.py``.
+
+Given the first K rows ``G_KN`` of an N x N gram (the center's exact block
+plus the quantization-estimated cross blocks), approximate
+``Ghat = G_NK G_KK^{-1} G_KN`` and serve its GP posterior in woodbury form,
+factorized once at fit time.  The streaming Cholesky updates
+(``chol_update*``/``chol_append*``) come with the streaming slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from .linalg_safe import DEFAULT_JITTER, chol_jittered, chol_safe
+
+__all__ = [
+    "nystrom_complete",
+    "nystrom_kinv",
+    "nystrom_factors",
+    "nystrom_apply",
+    "nystrom_serve_cache",
+    "nystrom_apply_cached",
+]
+
+
+def _tri_solve(L, B):
+    """L^{-1} B for lower-triangular L; B (K,) or (K, t)."""
+    if B.dim() == 1:
+        return torch.linalg.solve_triangular(L, B[:, None], upper=False)[:, 0]
+    return torch.linalg.solve_triangular(L, B, upper=False)
+
+
+def _cho_solve(L, B):
+    """(L L^T)^{-1} B; B (K,) or (K, t)."""
+    if B.dim() == 1:
+        return torch.cholesky_solve(B[:, None], L)[:, 0]
+    return torch.cholesky_solve(B, L)
+
+
+def _kk_jitter(G_KK):
+    return DEFAULT_JITTER * torch.trace(G_KK) / G_KK.shape[0]
+
+
+def nystrom_complete(G_KK, G_KN):
+    """Ghat = G_NK G_KK^{-1} G_KN (eq. 61); one-shot jitter, differentiable
+    (the training loss runs through it)."""
+    L = chol_jittered(G_KK, _kk_jitter(G_KK))
+    W = _tri_solve(L, G_KN)  # (K, N)
+    return W.T @ W
+
+
+def nystrom_kinv(W, L_M, s2, v):
+    """(Ghat + s2 I)^{-1} v in woodbury form:
+    (s2 I + W^T W)^{-1} = (I - W^T (s2 I + W W^T)^{-1} W) / s2."""
+    t = _cho_solve(L_M, W @ v)
+    return (v - W.T @ t) / s2
+
+
+def nystrom_factors(G_KK, G_KN, y, noise_var) -> dict:
+    """Fit-time factorization of the Nyström predictive, computed once:
+    ``L_KK`` = chol(G_KK + jitter), ``W`` = L_KK^{-1} G_KN,
+    ``L_M`` = chol(s2 I + W W^T), ``alpha`` = (Ghat + s2 I)^{-1} y."""
+    K = G_KK.shape[0]
+    L = chol_safe(G_KK, _kk_jitter(G_KK))
+    W = _tri_solve(L, G_KN)  # (K, N)
+    s2 = noise_var + DEFAULT_JITTER
+    M = s2 * torch.eye(K, dtype=W.dtype, device=W.device) + W @ W.T
+    Lm = chol_safe(M)
+    alpha = nystrom_kinv(W, Lm, s2, y)
+    return {"L_KK": L, "W": W, "L_M": Lm, "alpha": alpha}
+
+
+def nystrom_apply(factors, G_star_K, g_star_star, noise_var):
+    """Query-time Nyström predictive from :func:`nystrom_factors`:
+    O(t N K) triangular solves, no factorization."""
+    L, W, Lm, alpha = factors["L_KK"], factors["W"], factors["L_M"], factors["alpha"]
+    s2 = noise_var + DEFAULT_JITTER
+    B = _tri_solve(L, G_star_K.T)  # (K, t)
+    G_sN = B.T @ W  # (t, N)
+    mean = G_sN @ alpha
+    V = nystrom_kinv(W, Lm, s2, G_sN.T)  # (N, t), column by column
+    var = g_star_star - torch.sum(G_sN.T * V, dim=0)
+    return mean, torch.clamp(var, min=1e-12)
+
+
+def nystrom_serve_cache(factors) -> dict:
+    """K-sized serve operands from :func:`nystrom_factors`:
+    ``Ainv`` = L_KK^{-1}, ``U`` = W W^T, ``walpha`` = W alpha."""
+    L, W, alpha = factors["L_KK"], factors["W"], factors["alpha"]
+    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    return {"Ainv": _tri_solve(L, eye), "U": W @ W.T, "walpha": W @ alpha}
+
+
+def nystrom_apply_cached(factors, G_star_K, g_star_star, noise_var):
+    """:func:`nystrom_apply` from the :func:`nystrom_serve_cache` operands:
+    with B = L_KK^{-1} G_*K^T, mean = B^T (W alpha) and
+    quad = diag(B^T P B), P = (U - U M^{-1} U) / s2 — K-sized matmuls only."""
+    Ainv, U, Lm, walpha = (
+        factors["Ainv"], factors["U"], factors["L_M"], factors["walpha"],
+    )
+    s2 = noise_var + DEFAULT_JITTER
+    B = Ainv @ G_star_K.T  # (K, t)
+    mean = B.T @ walpha
+    P = (U - U @ _cho_solve(Lm, U)) / s2  # (K, K)
+    var = g_star_star - torch.sum(B * (P @ B), dim=0)
+    return mean, torch.clamp(var, min=1e-12)

@@ -1,0 +1,376 @@
+"""Shared machinery of the §5 protocols — counterpart of
+``repro/core/protocols/base.py``.
+
+* the padded-shard layout every batched stage runs on (:class:`PaddedShards`),
+* the wire state (:class:`WireState`, :class:`WireRun`),
+* the serving artifact (:class:`FittedProtocol`, :class:`StreamState`) and
+  its :func:`fit` / :func:`predict` / :func:`save_artifact` /
+  :func:`load_artifact` lifecycle,
+* :func:`artifact_from_arrays`, which builds an artifact from the arrays of
+  a checkpoint written by either package (keys as in the reference's npz:
+  ``params/…``, ``y``, ``factors/…``, ``data/…``, ``wire/…``, ``stream/…``).
+
+Artifacts are dataclasses of tensors on one device (``art.device``);
+:func:`predict` serves on that device.  Streaming ``update`` (slice 3) and
+degraded serving (slice 4) come later; the ``stream`` leaves are kept so
+checkpoints stay format v6.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..gp import GPParams, prior_diag
+from ..registry import PROTOCOLS
+from ..torch_scheme import words_from_uint32, words_to_uint32
+
+__all__ = [
+    "split_machines",
+    "pad_parts",
+    "PaddedShards",
+    "WireState",
+    "WireRun",
+    "StreamState",
+    "FittedProtocol",
+    "fit",
+    "predict",
+    "save_artifact",
+    "load_artifact",
+    "artifact_arrays",
+    "artifact_from_arrays",
+    "resolve_device",
+]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another.  Without CUDA, asking for it raises — nothing carries on
+    quietly on the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on the CUDA card by default and no CUDA device "
+            "is available; pass device=\"cpu\" to run on the CPU"
+        )
+    return device
+
+
+def _numpy(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def split_machines(X, y, m: int, generator: torch.Generator | None = None):
+    """Random uniform split across m machines (paper §6), drawn from
+    ``generator`` (seed 0 when None).  The permutation is torch's, so it
+    differs from the reference's ``jax.random`` split: parity tests pass
+    the same ``parts`` to both packages instead."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    X, y = _numpy(X), _numpy(y)
+    perm = torch.randperm(X.shape[0], generator=generator).numpy()
+    return [(X[c], y[c]) for c in np.array_split(perm, m)]
+
+
+class PaddedShards(collections.namedtuple("PaddedShards", "X y mask lengths")):
+    """(m, n_pad, d) machine shards; invalid rows are zero with mask 0.
+    ``lengths`` holds the per-machine true row counts (python ints)."""
+
+    __slots__ = ()
+
+
+def pad_parts(parts, device=None) -> PaddedShards:
+    """Stack per-machine ``(X_j, y_j)`` shards (numpy or tensors) into
+    zero-padded float32 tensors on ``device``."""
+    m = len(parts)
+    d = _numpy(parts[0][0]).shape[1]
+    lengths = tuple(int(_numpy(p[0]).shape[0]) for p in parts)
+    n_pad = max(lengths)
+    X = np.zeros((m, n_pad, d), np.float32)
+    y = np.zeros((m, n_pad), np.float32)
+    mask = np.zeros((m, n_pad), np.float32)
+    for j, (Xj, yj) in enumerate(parts):
+        X[j, : lengths[j]] = _numpy(Xj)
+        y[j, : lengths[j]] = _numpy(yj)
+        mask[j, : lengths[j]] = 1.0
+    to = lambda a: torch.from_numpy(a).to(device)
+    return PaddedShards(to(X), to(y), to(mask), lengths)
+
+
+@dataclasses.dataclass
+class WireState:
+    """Everything the wire protocol produced, for every machine at once.
+
+    codes (m, n_pad, W) int32 — the PACKED words (uint32 bit patterns,
+    ``torch_scheme.pack_codes``; padded rows are all-zero words); decoded
+    (m, n_pad, d) reconstructions (padded rows zero); T_inv (m, d, d);
+    rates (m, d) int32; sigma (m, d); scaled_cents (m, d, C) qgram decode
+    tables; T (m, d, d).  The field order is the checkpoint's key order."""
+
+    codes: torch.Tensor
+    decoded: torch.Tensor
+    T_inv: torch.Tensor
+    rates: torch.Tensor
+    sigma: torch.Tensor
+    scaled_cents: torch.Tensor
+    T: torch.Tensor
+
+
+class WireRun(collections.namedtuple(
+    "WireRun", "state wire_bits payload_bits integrity_bits shards",
+)):
+    """What one ``SchemeSpec.run`` produced: the :class:`WireState`, the
+    three integer ledgers (Theorem-1 ``wire_bits``, packed ``payload_bits``,
+    CRC ``integrity_bits``) and the :class:`PaddedShards` the protocol
+    assembles from.  (The reference's scheme ``extras`` and demotion count
+    come with the vq scheme and fault injection.)"""
+
+    __slots__ = ()
+
+
+@dataclasses.dataclass
+class StreamState:
+    """The mutable counters of an artifact, as int32 tensors: per-machine
+    row counts ``counts`` (m,), occupied columns ``cols`` and the three
+    ledgers plus ``rows_demoted`` (scalars).  ``update`` (slice 3) extends
+    them; checkpoints carry them as ``stream/*``."""
+
+    counts: torch.Tensor
+    cols: torch.Tensor
+    wire_bits: torch.Tensor
+    payload_bits: torch.Tensor
+    integrity_bits: torch.Tensor
+    rows_demoted: torch.Tensor
+
+    @classmethod
+    def make(cls, counts, cols, wire_bits=0, payload_bits=0,
+             integrity_bits=0, rows_demoted=0, device=None) -> "StreamState":
+        i32 = lambda v: torch.as_tensor(np.asarray(v, np.int32), device=device)
+        return cls(
+            counts=i32(counts), cols=i32(cols), wire_bits=i32(wire_bits),
+            payload_bits=i32(payload_bits), integrity_bits=i32(integrity_bits),
+            rows_demoted=i32(rows_demoted),
+        )
+
+
+@dataclasses.dataclass
+class FittedProtocol:
+    """The serving artifact, as in the reference: ``params`` (trained
+    :class:`~repro_torch.core.gp.GPParams`), ``y`` (targets in the
+    center's column layout), ``factors`` (cached solve factors — the
+    Nyström ``L_KK``/``W``/``L_M``/``alpha`` and, for the fused serve
+    epilogue, ``Ainv``/``U``/``walpha``), ``data`` (``Xc``, ``X_recon``,
+    ``sq_cols``, ``sq_exact``, ``valid``), ``wire`` (:class:`WireState`),
+    ``stream`` (:class:`StreamState`) and the static metadata that the
+    checkpoint's ``meta.json`` records."""
+
+    params: GPParams
+    y: torch.Tensor
+    factors: dict
+    data: dict
+    wire: WireState | None
+    stream: StreamState
+    protocol: str
+    kernel: str
+    gram_mode: str
+    fuse: str
+    gram_backend: str
+    n_center: int
+    fit_lengths: tuple
+    block_order: tuple | None
+    bits_per_sample: int
+    max_bits: int
+    impl: str = "batched"
+    scheme: str = "per_symbol"
+    config: object | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.y.device
+
+    @property
+    def lengths(self) -> tuple:
+        return tuple(int(v) for v in self.stream.counts.tolist())
+
+    @property
+    def wire_bits(self) -> int:
+        return int(self.stream.wire_bits)
+
+    @property
+    def payload_bits(self) -> int:
+        return int(self.stream.payload_bits)
+
+    @property
+    def integrity_bits(self) -> int:
+        return int(self.stream.integrity_bits)
+
+    @property
+    def rows_demoted(self) -> int:
+        return int(self.stream.rows_demoted)
+
+
+def fit(parts, cfg, params: GPParams | None = None, device=None) -> FittedProtocol:
+    """Run the configured protocol once on ``device`` (the card when None)
+    and return the serving artifact (the engine under
+    ``DistributedGP.fit``)."""
+    if cfg.impl != "batched":
+        raise NotImplementedError(
+            f'impl={cfg.impl!r} is not ported yet (the port runs impl="batched"; '
+            "the mesh substrate is queue 1, slice 7 in ROADMAP.md)"
+        )
+    return PROTOCOLS.get(cfg.protocol).fit(parts, cfg, params, resolve_device(device))
+
+
+def predict(art: FittedProtocol, X_star):
+    """Serve one query batch from a fitted artifact: (mean, var) at X_star,
+    on the artifact's device, from the cached factors only.
+
+    Tripwire: non-finite query rows are zeroed before the kernel map (one
+    NaN row would otherwise poison the batch) and answered with the prior
+    predictive; for finite inputs every select is an identity."""
+    X_star = torch.as_tensor(X_star, dtype=torch.float32, device=art.device)
+    p = art.params
+    noise = torch.exp(p.log_noise)
+    finite_row = torch.isfinite(X_star).all(dim=-1)
+    Xq = torch.where(finite_row[:, None], X_star, torch.zeros_like(X_star))
+    sq_star = torch.sum(Xq**2, -1)
+    g_ss = prior_diag(art.kernel, p, sq_star)
+    mu, var = PROTOCOLS.get(art.protocol).predict(art, Xq, sq_star, g_ss, noise)
+    ok = finite_row & torch.isfinite(mu) & torch.isfinite(var)
+    mu = torch.where(ok, mu, torch.zeros_like(mu))
+    var = torch.where(ok, var, g_ss + noise)  # degrade to the prior, not NaN
+    return mu, var
+
+
+# --------------------------------------------------------------------------
+# persistence: the reference's npz + meta.json layout
+# --------------------------------------------------------------------------
+
+
+def artifact_arrays(art: FittedProtocol) -> dict:
+    """{key: numpy array} of an artifact, keyed and typed as the
+    reference's checkpoint (dict keys sorted, the word plane as uint32)."""
+    out = {f"params/{f}": _numpy(getattr(art.params, f)) for f in GPParams._fields}
+    out["y"] = _numpy(art.y)
+    for group in ("factors", "data"):
+        d = getattr(art, group)
+        out.update({f"{group}/{k}": _numpy(d[k]) for k in sorted(d)})
+    if art.wire is not None:
+        for f in dataclasses.fields(WireState):
+            v = getattr(art.wire, f.name)
+            out[f"wire/{f.name}"] = (
+                words_to_uint32(v) if f.name == "codes" else _numpy(v)
+            )
+    for f in dataclasses.fields(StreamState):
+        out[f"stream/{f.name}"] = _numpy(getattr(art.stream, f.name))
+    return out
+
+
+def save_artifact(art: FittedProtocol, directory: str, step: int = 0) -> str:
+    """Checkpoint an artifact in the reference's format v6: the npz of
+    :func:`artifact_arrays` plus ``meta_*.json`` with the static metadata,
+    the config and a CRC32 per array; the reference's ``load_artifact``
+    reads it."""
+    from ...checkpoint import save_artifact as _save
+    from ..config import ARTIFACT_FORMAT_VERSION
+
+    cfg = art.config
+    meta = {
+        "format_version": ARTIFACT_FORMAT_VERSION,
+        "protocol": art.protocol, "kernel": art.kernel,
+        "gram_mode": art.gram_mode, "fuse": art.fuse,
+        "gram_backend": art.gram_backend, "n_center": art.n_center,
+        "lengths": list(art.lengths),
+        "fit_lengths": list(art.fit_lengths),
+        "block_order": list(art.block_order) if art.block_order is not None else None,
+        "bits_per_sample": art.bits_per_sample, "max_bits": art.max_bits,
+        "wire_bits": art.wire_bits, "has_wire": art.wire is not None,
+        "payload_bits": art.payload_bits,
+        "integrity_bits": art.integrity_bits,
+        "rows_demoted": art.rows_demoted,
+        "impl": art.impl,
+        "scheme": art.scheme,
+        "config": cfg.asdict() if cfg is not None else None,
+    }
+    return _save(directory, step, artifact_arrays(art), meta)
+
+
+def artifact_from_arrays(meta: dict, arrays: dict, device=None) -> FittedProtocol:
+    """Build the port's artifact on ``device`` from a checkpoint's ``meta``
+    and its arrays (numpy, keyed as in the reference's npz) — a checkpoint
+    of either package.  This slice serves v5/v6 center Nyström artifacts;
+    older formats and other protocols raise ``NotImplementedError``."""
+    from ..config import ARTIFACT_FORMAT_VERSION, DGPConfig
+
+    version = meta.get("format_version", 1)
+    if version > ARTIFACT_FORMAT_VERSION:
+        raise ValueError(
+            f"artifact format version {version} is newer than this code "
+            f"supports ({ARTIFACT_FORMAT_VERSION})"
+        )
+    protocol = meta["protocol"]
+    PROTOCOLS.get(protocol)  # raises for a protocol not ported yet
+    stream_keys = [f"stream/{f.name}" for f in dataclasses.fields(StreamState)]
+    if meta.get("config") is None or not all(k in arrays for k in stream_keys):
+        raise NotImplementedError(
+            f"format-v{version} checkpoints (no config block or no stream/* "
+            "arrays) are not ported yet: the legacy loaders are at the head "
+            "of queue 1, slice 2 in ROADMAP.md"
+        )
+    if meta["gram_mode"] != "nystrom":
+        raise NotImplementedError(
+            f"gram_mode={meta['gram_mode']!r} is not ported yet (queue 1, "
+            "slice 2 in ROADMAP.md)"
+        )
+    config = dataclasses.replace(DGPConfig.from_dict(meta["config"]), impl="batched")
+    device = resolve_device(device)
+
+    def put(key):
+        return torch.from_numpy(np.array(arrays[key], copy=True)).to(device)
+
+    params = GPParams(*(put(f"params/{f}") for f in GPParams._fields))
+    group = lambda g: {
+        k.split("/", 1)[1]: put(k) for k in sorted(arrays) if k.startswith(g + "/")
+    }
+    factors, data = group("factors"), group("data")
+    wire = None
+    if meta["has_wire"]:
+        if arrays["wire/codes"].dtype != np.uint32:
+            raise NotImplementedError(
+                "unpacked (pre-v3) wire codes are not ported yet (queue 1, "
+                "slice 2 in ROADMAP.md)"
+            )
+        wire = WireState(*(
+            words_from_uint32(arrays["wire/codes"], device) if f.name == "codes"
+            else put(f"wire/{f.name}")
+            for f in dataclasses.fields(WireState)
+        ))
+    y = put("y")
+    if "valid" not in data:
+        data["valid"] = torch.ones_like(y)
+    stream = StreamState(*(put(k) for k in stream_keys))
+    return FittedProtocol(
+        params=params, y=y, factors=factors, data=data, wire=wire,
+        stream=stream, protocol=protocol, kernel=meta["kernel"],
+        gram_mode=meta["gram_mode"], fuse=meta["fuse"],
+        gram_backend=meta["gram_backend"], n_center=meta["n_center"],
+        fit_lengths=tuple(meta.get("fit_lengths", meta["lengths"])),
+        block_order=(tuple(meta["block_order"])
+                     if meta["block_order"] is not None else None),
+        bits_per_sample=meta["bits_per_sample"], max_bits=meta["max_bits"],
+        impl="batched", scheme=meta.get("scheme", "per_symbol"), config=config,
+    )
+
+
+def load_artifact(directory: str, step: int | None = None, device=None) -> FittedProtocol:
+    """Restore a checkpoint of either package onto ``device`` (its CRC32s
+    verified): :func:`artifact_from_arrays` applied to the files."""
+    from ...checkpoint import load_artifact_arrays
+
+    device = resolve_device(device)
+    meta, arrays = load_artifact_arrays(directory, step)
+    return artifact_from_arrays(meta, arrays, device)

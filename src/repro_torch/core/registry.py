@@ -1,0 +1,130 @@
+"""Name registries of the port — counterpart of ``repro/core/registry.py``.
+
+Kernels, wire schemes and protocols are looked up by name, as in the
+reference, so ``DGPConfig`` validation and the ``fit``/``predict`` dispatch
+share one table each.  The port is built slice by slice: a name the
+reference knows but the port has not built yet is registered as *pending*
+with the slice that brings it.  It passes config validation (the config
+fields and their values are the reference's), and looking it up raises
+``NotImplementedError`` naming that slice.  ``FUSIONS`` holds names only,
+for config validation: the center protocol fuses nothing.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+__all__ = [
+    "Registry", "KernelSpec", "SchemeSpec", "ProtocolSpec",
+    "KERNELS", "SCHEMES", "FUSIONS", "PROTOCOLS",
+    "register_kernel", "register_scheme", "register_protocol",
+]
+
+
+class Registry:
+    """A named table of components.  ``register`` rejects duplicates;
+    ``get`` raises ``ValueError`` listing the known names, or
+    ``NotImplementedError`` for a name still pending a later slice."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+        self._entries: dict[str, Any] = {}
+        self._pending: dict[str, str] = {}
+
+    def register(self, name: str, entry: Any) -> Any:
+        if not isinstance(name, str) or not name:
+            raise ValueError(f"{self.kind} name must be a non-empty string")
+        if name in self._entries:
+            raise ValueError(
+                f"duplicate {self.kind} {name!r}: already registered "
+                f"(known {self.kind}s: {', '.join(self.names())})"
+            )
+        self._pending.pop(name, None)
+        self._entries[name] = entry
+        return entry
+
+    def pending(self, name: str, where: str) -> None:
+        """Record a reference name the port has not built yet (``where``
+        names the ROADMAP slice that ports it)."""
+        if name not in self._entries:
+            self._pending[name] = where
+
+    def check(self, name: str) -> None:
+        """Config validation: accept registered and pending names."""
+        if name not in self._entries and name not in self._pending:
+            self.get(name)
+
+    def get(self, name: str) -> Any:
+        if name in self._entries:
+            return self._entries[name]
+        if name in self._pending:
+            raise NotImplementedError(
+                f"{self.kind} {name!r} is not ported to repro_torch yet "
+                f"({self._pending[name]} in ROADMAP.md)"
+            )
+        raise ValueError(
+            f"unknown {self.kind} {name!r}: known {self.kind}s are "
+            f"{', '.join(self.names())}"
+        )
+
+    def names(self) -> tuple[str, ...]:
+        return tuple(sorted(set(self._entries) | set(self._pending)))
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._entries
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    """A GP kernel: dense gram builder plus the inner-product/diagonal forms
+    the quantized-wire paths consume (see ``gp.kernel_from_inner``)."""
+
+    name: str
+    gram: Callable  # (params, X, X2=None, *, backend="xla") -> (n, n2)
+    from_inner: Callable  # (params, ip, sq_x, sq_x2) -> gram block
+    prior_diag: Callable  # (params, sq_x) -> k(x, x) vector
+
+
+@dataclasses.dataclass(frozen=True)
+class SchemeSpec:
+    """A wire scheme: ``run(shards, bits, max_bits, mode, center)`` executes
+    the fit-time wire protocol for every machine at once and returns a
+    :class:`~repro_torch.core.protocols.base.WireRun`."""
+
+    name: str
+    run: Callable
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolSpec:
+    """A distributed-GP protocol: the fit/predict pair the facade
+    dispatches on."""
+
+    name: str
+    fit: Callable  # (parts, cfg, params, device) -> FittedProtocol
+    predict: Callable  # (art, X_star, sq_star, g_ss, noise) -> (mu, s2)
+
+
+KERNELS = Registry("kernel")
+SCHEMES = Registry("scheme")
+FUSIONS = Registry("fusion")
+PROTOCOLS = Registry("protocol")
+
+# the reference's builtin names, pending until their slice lands
+for _name in ("kl", "poe", "gpoe", "bcm", "rbcm"):
+    FUSIONS.register(_name, _name)
+SCHEMES.pending("vq", "queue 1, slice 6")
+PROTOCOLS.pending("broadcast", "queue 1, slice 2")
+PROTOCOLS.pending("poe", "queue 1, slice 2")
+
+
+def register_kernel(spec: KernelSpec) -> KernelSpec:
+    return KERNELS.register(spec.name, spec)
+
+
+def register_scheme(spec: SchemeSpec) -> SchemeSpec:
+    return SCHEMES.register(spec.name, spec)
+
+
+def register_protocol(spec: ProtocolSpec) -> ProtocolSpec:
+    return PROTOCOLS.register(spec.name, spec)

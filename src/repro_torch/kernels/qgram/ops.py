@@ -1,0 +1,115 @@
+"""Public wrappers of the fused packed-words dequantize+gram kernel —
+counterpart of ``repro/kernels/qgram/ops.py`` (the packed path).
+
+:func:`qgram_packed_batched` computes, for every machine at once,
+G[b] = decode(unpack(words[b])) proj[b]^T straight from the packed code
+plane: through the hand-written Hopper kernel (``csrc/qgram_packed.cu``, ONE
+launch over the machine axis) for CUDA tensors, and through
+:func:`.ref.qgram_packed_plain` for CPU tensors.  Words are the port's
+int32 tensors carrying the uint32 bit pattern (see
+:mod:`repro_torch.core.torch_scheme`).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ...core.torch_scheme import WORD_BITS, row_words
+from .. import build, runtime
+from .ref import qgram_packed_plain
+
+__all__ = ["qgram_packed", "qgram_packed_batched", "qgram_packed_cuda",
+           "qgram_packed_plain", "pack_meta", "FAMILY"]
+
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = build.library("qgram_packed").repro_qgram_packed_f32
+        ptr = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int] * 6 + [ptr, ptr, ptr, ptr, ctypes.c_int64,
+                                            ptr, ptr, ptr]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def pack_meta(rates: torch.Tensor) -> torch.Tensor:
+    """(..., 3, d) int32 [word index, bit offset, width] rows of each
+    dimension's code in the packed row — ``_pack_meta`` of the reference."""
+    w = rates.to(torch.int32)
+    offs = torch.cumsum(w, -1, dtype=torch.int32) - w
+    return torch.stack([offs // WORD_BITS, offs % WORD_BITS, w], dim=-2)
+
+
+def _need(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"qgram_packed kernel: {msg}")
+
+
+def qgram_packed_cuda(words, rates, scaled_cents, y, *, total_bits, mask=None):
+    """Launch the Hopper kernel once over all machines.  words (m, n, W)
+    int32, rates (m, d) integer, scaled_cents (m, d, C) fp32, y (p, d) or
+    (m, p, d) fp32, mask (m, n) fp32 or None; all contiguous on one CUDA
+    device.  Raises on a bad operand or a refused launch; never falls back."""
+    dev = words.device
+    _need(dev.type == "cuda", f"words on {dev}, not a CUDA device")
+    _need(words.dim() == 3 and scaled_cents.dim() == 3 and rates.dim() == 2,
+          "expects words (m, n, W), rates (m, d), scaled_cents (m, d, C)")
+    m, n, W = words.shape
+    d, C = scaled_cents.shape[1:]
+    p = y.shape[-2]
+    _need(W == row_words(total_bits), f"{W} words per row, total_bits={total_bits}")
+    _need(tuple(rates.shape) == (m, d) and scaled_cents.shape[0] == m,
+          "machine axes of words, rates and scaled_cents differ")
+    _need(y.shape[-1] == d and y.dim() in (2, 3) and (y.dim() == 2 or y.shape[0] == m),
+          f"y must be (p, {d}) or ({m}, p, {d}), got {tuple(y.shape)}")
+    if mask is None:
+        mask = torch.ones((m, n), dtype=torch.float32, device=dev)
+    _need(tuple(mask.shape) == (m, n), f"mask must be ({m}, {n})")
+    _need(words.dtype == torch.int32, f"words must be int32, got {words.dtype}")
+    for name, t in (("scaled_cents", scaled_cents), ("y", y), ("mask", mask)):
+        _need(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
+    for name, t in (("words", words), ("rates", rates), ("scaled_cents", scaled_cents),
+                    ("y", y), ("mask", mask)):
+        _need(t.device == dev, f"{name} on {t.device}, words on {dev}")
+        _need(t.is_contiguous(), f"{name} must be contiguous")
+    meta = pack_meta(rates).contiguous()
+    out = torch.empty((m, n, p), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0 or p == 0:
+        return out
+    proj_bs = p * d if y.dim() == 3 else 0
+    with torch.cuda.device(dev):
+        err = _fn()(
+            m, n, p, d, W, C, words.data_ptr(), meta.data_ptr(),
+            scaled_cents.data_ptr(), y.data_ptr(), proj_bs, mask.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"qgram_packed kernel launch failed: CUDA error {err}")
+    FAMILY.launches += 1
+    return out
+
+
+FAMILY = runtime.register("qgram_packed", qgram_packed_cuda, qgram_packed_plain)
+
+
+def qgram_packed_batched(words, rates, scaled_cents, y, *, total_bits, mask=None):
+    """G = decode(unpack(words)) y^T for every machine: words (m, n, W),
+    rates (m, d), scaled_cents (m, d, C), y (p, d) shared or (m, p, d),
+    mask (m, n) row validity (masked rows give zero rows) -> (m, n, p)."""
+    return runtime.choose("qgram_packed", words)(
+        words, rates, scaled_cents, y, total_bits=total_bits, mask=mask
+    )
+
+
+def qgram_packed(words, rates, scaled_cents, y, *, total_bits, mask=None):
+    """One machine: words (n, W), rates (d,), scaled_cents (d, C), y (p, d),
+    mask (n,) -> (n, p)."""
+    return qgram_packed_batched(
+        words[None], rates[None], scaled_cents[None], y, total_bits=total_bits,
+        mask=None if mask is None else mask[None],
+    )[0]

@@ -1,0 +1,112 @@
+"""repro_torch's CUDA kernels and main path on the card (``gpu`` marker).
+
+These tests import neither JAX nor the JAX package, so they run on a machine
+that has only PyTorch for CUDA: ``python -m pytest -q -m gpu
+tests/test_torch_gpu.py``.  Without a card every test skips (the decision is
+taken inside the ``cuda`` fixture, so every worker collects the same tests).
+Each kernel is held against its plain PyTorch version on the same inputs:
+fp32 sums in different orders, no TF32, so rtol 1e-5 with atol 1e-5 times
+the output's scale.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import DGPConfig, DistributedGP  # noqa: E402
+from repro_torch.core import torch_scheme as TS  # noqa: E402
+from repro_torch.kernels import runtime  # noqa: E402
+from repro_torch.kernels.gram.ops import gram, gram_cuda, gram_plain  # noqa: E402
+from repro_torch.kernels.qgram.ops import (  # noqa: E402
+    qgram_packed_cuda, qgram_packed_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("n,p,d", [(128, 25, 21), (25, 25, 21), (130, 70, 50),
+                                   (1, 1, 1), (4449, 1000, 21)])
+def test_gram_kernel_and_backward(cuda, n, p, d):
+    g = torch.Generator().manual_seed(n + p + d)
+    x, y = torch.randn(n, d, generator=g), torch.randn(p, d, generator=g)
+    before = runtime.family("gram").launches
+    got = gram_cuda(x.to(cuda), y.to(cuda))
+    torch.cuda.synchronize()
+    assert runtime.family("gram").launches == before + 1
+    _close(got.cpu().numpy(), gram_plain(x, y).numpy())
+    xr, yr = x.to(cuda).requires_grad_(True), y.to(cuda).requires_grad_(True)
+    gg = torch.randn(n, p, generator=g)
+    gram(xr, yr).backward(gg.to(cuda))
+    _close(xr.grad.cpu().numpy(), (gg @ y).numpy())
+    _close(yr.grad.cpu().numpy(), (gg.T @ x).numpy())
+
+
+def _packed(seed, m, n, d, p, R, zero_dims=(), mask_frac=0.0, cap=12):
+    rng = np.random.default_rng(seed)
+    live = [j for j in range(d) if j not in zero_dims]
+    rates = np.zeros((m, d), np.int64)
+    for i in range(m):
+        for _ in range(R):
+            j = live[rng.integers(len(live))]
+            rates[i, j] = min(rates[i, j] + 1, cap)
+    codes = rng.integers(0, 2 ** rates[:, None, :], size=(m, n, d))
+    words = TS.pack_codes(torch.from_numpy(codes), torch.from_numpy(rates), total_bits=R)
+    return [words, torch.from_numpy(rates).int(),
+            torch.from_numpy(rng.normal(size=(m, d, 2**cap)).astype(np.float32)),
+            torch.from_numpy(rng.normal(size=(m, p, d)).astype(np.float32)),
+            torch.from_numpy((rng.random((m, n)) >= mask_frac).astype(np.float32))]
+
+
+@pytest.mark.parametrize("m,n,d,p,R,zero_dims,mask_frac", [
+    (39, 25, 21, 25, 24, (), 0.0),      # the main path's fit-time call
+    (39, 25, 21, 25, 100, (), 0.0),     # W = 4: codes straddle words
+    (3, 70, 21, 45, 24, (0, 5, 20), 0.3),  # width-0 dims, masked rows
+    (2, 37, 8, 11, 7, (2,), 0.25),      # ragged tiles
+    (2, 10, 5, 3, 0, (), 0.0),          # rate 0: no words at all
+])
+def test_qgram_packed_kernel(cuda, m, n, d, p, R, zero_dims, mask_frac):
+    words, rates, cents, proj, mask = _packed(R + n, m, n, d, p, R, zero_dims, mask_frac)
+    before = runtime.family("qgram_packed").launches
+    got = qgram_packed_cuda(words.to(cuda), rates.to(cuda), cents.to(cuda),
+                            proj.to(cuda), total_bits=R, mask=mask.to(cuda))
+    torch.cuda.synchronize()
+    assert runtime.family("qgram_packed").launches == before + 1
+    want = qgram_packed_plain(words, rates, cents, proj, total_bits=R, mask=mask)
+    _close(got.cpu().numpy(), want.numpy())
+
+
+def test_main_path_on_card_launches_both_kernels(cuda, tmp_path):
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(320, 21)).astype(np.float32)
+    y = (np.sin(X[:, 0]) + 0.1 * rng.normal(size=320)).astype(np.float32)
+    parts = [(X[j::8], y[j::8]) for j in range(8)]
+    cfg = DGPConfig(gram_backend="pallas", steps=10)
+    est = DistributedGP(cfg)
+    runtime.reset_launches()
+    art = est.fit(parts=parts)
+    assert art.device.type == "cuda"
+    fit_launches = runtime.launches()
+    assert fit_launches["gram"] > 0 and fit_launches["qgram_packed"] > 0
+    mu, var = est.predict(art, X[:64])
+    assert runtime.launches()["gram"] > fit_launches["gram"]
+    est.save(art, str(tmp_path))
+    mu2, var2 = est.predict(est.load(str(tmp_path)), X[:64])
+    assert torch.equal(mu, mu2) and torch.equal(var, var2)
+    cpu = DistributedGP(cfg, device="cpu")
+    mu_c, var_c = cpu.predict(cpu.load(str(tmp_path)), X[:64])
+    _close(mu.cpu().numpy(), mu_c.numpy())
+    _close(var.cpu().numpy(), var_c.numpy())
