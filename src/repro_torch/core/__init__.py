@@ -1,6 +1,6 @@
 """repro_torch.core — the paper's protocols in PyTorch (counterpart of
 ``repro.core``).  The front door is ``DistributedGP(DGPConfig(...))``."""
-from . import quantizers, linalg_safe, torch_scheme, gp, nystrom  # noqa: F401
+from . import quantizers, linalg_safe, torch_scheme, gp, nystrom, fusion, poe  # noqa: F401
 from . import registry, config, protocols, api  # noqa: F401
 
 from .api import DistributedGP

@@ -6,6 +6,10 @@
     est = DistributedGP(DGPConfig(gram_backend="pallas"))  # on the card
     art = est.fit(X, y, m=40)          # wire + train + factorize ONCE
     mu, var = est.predict(art, X_query)
+    # §5.2 broadcast (KL fusion) and the zero-rate rBCM baseline
+    bc = DistributedGP(DGPConfig(protocol="broadcast", fusion="kl", gram_backend="pallas"))
+    rbcm = DistributedGP(DGPConfig(protocol="poe", fusion="rbcm", gram_backend="pallas"))
+    mu, var = bc.predict(bc.fit(X, y, m=40), X_query, available=alive)  # (m,) mask
     est.save(art, "ckpt/")             # est.load("ckpt/") serves identically
 
 The estimator runs on ``device`` — the CUDA card unless the caller passes
@@ -65,10 +69,12 @@ class DistributedGP:
             )
         return _base.fit(parts, self.config, params, self.device)
 
-    def predict(self, art: FittedProtocol, X_star):
+    def predict(self, art: FittedProtocol, X_star, available=None):
         """Serve one query batch: (mean, var) at ``X_star`` from the cached
-        factors, on the artifact's device."""
-        return _base.predict(art, X_star)
+        factors, on the artifact's device.  ``available``: optional (m,)
+        machine-availability mask; the broadcast and poe fusions
+        renormalize over the surviving machines."""
+        return _base.predict(art, X_star, available)
 
     def update(self, art, X_new, y_new, machine: int = 0):
         raise NotImplementedError(

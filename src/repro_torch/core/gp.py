@@ -15,7 +15,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .linalg_safe import DEFAULT_JITTER, chol_jittered
+from .linalg_safe import DEFAULT_JITTER, chol_jittered, chol_safe
 from .registry import KERNELS, KernelSpec, register_kernel
 
 __all__ = [
@@ -26,6 +26,8 @@ __all__ = [
     "kernel_from_inner",
     "prior_diag",
     "gram_fn",
+    "posterior_factors",
+    "posterior_apply",
     "nlml_from_gram",
     "make_adam_step",
     "train_gp",
@@ -86,7 +88,8 @@ def _linear_from_inner(params: GPParams, ip, sq_x, sq_x2):
 
 
 def _se_from_inner(params: GPParams, ip, sq_x, sq_x2):
-    sq = torch.clamp(sq_x[:, None] + sq_x2[None, :] - 2.0 * ip, min=0.0)
+    # batch-safe: leading axes of sq_x / sq_x2 broadcast against ip's
+    sq = torch.clamp(sq_x[..., :, None] + sq_x2[..., None, :] - 2.0 * ip, min=0.0)
     return torch.exp(params.log_a) * torch.exp(-sq / torch.exp(params.log_b))
 
 
@@ -123,6 +126,30 @@ def gram_fn(kernel: str, backend: str = "xla") -> Callable:
     if backend == "xla":
         return fn
     return lambda params, X, X2=None: fn(params, X, X2, backend=backend)
+
+
+def posterior_factors(G, y, noise_var):
+    """Fit-time half of the dense GP predictive: factorize the train gram
+    once into ``{"L": chol(G + noise I), "alpha": (G + noise I)^{-1} y}``.
+    Batched over leading axes (G (..., n, n), y (..., n)); the noise is a
+    scalar or broadcasts against the diagonal (..., n)."""
+    noise = torch.as_tensor(noise_var, dtype=G.dtype, device=G.device)
+    diag = torch.broadcast_to(noise, G.shape[:-1]) + DEFAULT_JITTER
+    # fit-time: jitter already on the diagonal; escalate only if the factor
+    # still fails (rank-deficient gram)
+    L = chol_safe(G + torch.diag_embed(diag))
+    alpha = torch.cholesky_solve(y[..., None], L)[..., 0]
+    return {"L": L, "alpha": alpha}
+
+
+def posterior_apply(factors, G_star_n, g_star_star):
+    """Query-time half: triangular solves against cached
+    :func:`posterior_factors`, no factorization.  Batched over leading
+    axes: G_star_n (..., t, n), g_star_star (t,) -> mean, var (..., t)."""
+    mean = (G_star_n @ factors["alpha"][..., None])[..., 0]
+    V = torch.linalg.solve_triangular(factors["L"], G_star_n.mT, upper=False)
+    var = g_star_star - torch.sum(V**2, dim=-2)
+    return mean, torch.clamp(var, min=1e-12)
 
 
 def nlml_from_gram(G, y, noise_var):

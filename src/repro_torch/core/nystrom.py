@@ -23,22 +23,35 @@ __all__ = [
 ]
 
 
+def _col(B, L):
+    """(B as a matrix, whether it was a vector): a vector has one axis
+    fewer than the (..., K, K) factor ``L`` it is solved against."""
+    vec = B.dim() == L.dim() - 1
+    return (B[..., None] if vec else B), vec
+
+
 def _tri_solve(L, B):
-    """L^{-1} B for lower-triangular L; B (K,) or (K, t)."""
-    if B.dim() == 1:
-        return torch.linalg.solve_triangular(L, B[:, None], upper=False)[:, 0]
-    return torch.linalg.solve_triangular(L, B, upper=False)
+    """L^{-1} B for lower-triangular L (..., K, K); B (..., K) or (..., K, t)."""
+    Bm, vec = _col(B, L)
+    out = torch.linalg.solve_triangular(L, Bm, upper=False)
+    return out[..., 0] if vec else out
 
 
 def _cho_solve(L, B):
-    """(L L^T)^{-1} B; B (K,) or (K, t)."""
-    if B.dim() == 1:
-        return torch.cholesky_solve(B[:, None], L)[:, 0]
-    return torch.cholesky_solve(B, L)
+    """(L L^T)^{-1} B; B (..., K) or (..., K, t)."""
+    Bm, vec = _col(B, L)
+    out = torch.cholesky_solve(Bm, L)
+    return out[..., 0] if vec else out
+
+
+def _mv(A, v):
+    """A v for A (..., a, b) and v (..., b)."""
+    return (A @ v[..., None])[..., 0]
 
 
 def _kk_jitter(G_KK):
-    return DEFAULT_JITTER * torch.trace(G_KK) / G_KK.shape[0]
+    """Per matrix: DEFAULT_JITTER x trace / K (batched over leading axes)."""
+    return DEFAULT_JITTER * torch.diagonal(G_KK, dim1=-2, dim2=-1).sum(-1) / G_KK.shape[-1]
 
 
 def nystrom_complete(G_KK, G_KN):
@@ -46,25 +59,27 @@ def nystrom_complete(G_KK, G_KN):
     (the training loss runs through it)."""
     L = chol_jittered(G_KK, _kk_jitter(G_KK))
     W = _tri_solve(L, G_KN)  # (K, N)
-    return W.T @ W
+    return W.mT @ W
 
 
 def nystrom_kinv(W, L_M, s2, v):
     """(Ghat + s2 I)^{-1} v in woodbury form:
     (s2 I + W^T W)^{-1} = (I - W^T (s2 I + W W^T)^{-1} W) / s2."""
-    t = _cho_solve(L_M, W @ v)
-    return (v - W.T @ t) / s2
+    v_m, vec = _col(v, W)
+    t = _cho_solve(L_M, W @ v_m)
+    out = (v_m - W.mT @ t) / s2
+    return out[..., 0] if vec else out
 
 
 def nystrom_factors(G_KK, G_KN, y, noise_var) -> dict:
     """Fit-time factorization of the Nyström predictive, computed once:
     ``L_KK`` = chol(G_KK + jitter), ``W`` = L_KK^{-1} G_KN,
     ``L_M`` = chol(s2 I + W W^T), ``alpha`` = (Ghat + s2 I)^{-1} y."""
-    K = G_KK.shape[0]
+    K = G_KK.shape[-1]
     L = chol_safe(G_KK, _kk_jitter(G_KK))
     W = _tri_solve(L, G_KN)  # (K, N)
     s2 = noise_var + DEFAULT_JITTER
-    M = s2 * torch.eye(K, dtype=W.dtype, device=W.device) + W @ W.T
+    M = s2 * torch.eye(K, dtype=W.dtype, device=W.device) + W @ W.mT
     Lm = chol_safe(M)
     alpha = nystrom_kinv(W, Lm, s2, y)
     return {"L_KK": L, "W": W, "L_M": Lm, "alpha": alpha}
@@ -75,11 +90,11 @@ def nystrom_apply(factors, G_star_K, g_star_star, noise_var):
     O(t N K) triangular solves, no factorization."""
     L, W, Lm, alpha = factors["L_KK"], factors["W"], factors["L_M"], factors["alpha"]
     s2 = noise_var + DEFAULT_JITTER
-    B = _tri_solve(L, G_star_K.T)  # (K, t)
-    G_sN = B.T @ W  # (t, N)
-    mean = G_sN @ alpha
-    V = nystrom_kinv(W, Lm, s2, G_sN.T)  # (N, t), column by column
-    var = g_star_star - torch.sum(G_sN.T * V, dim=0)
+    B = _tri_solve(L, G_star_K.mT)  # (K, t)
+    G_sN = B.mT @ W  # (t, N)
+    mean = _mv(G_sN, alpha)
+    V = nystrom_kinv(W, Lm, s2, G_sN.mT)  # (N, t), column by column
+    var = g_star_star - torch.sum(G_sN.mT * V, dim=-2)
     return mean, torch.clamp(var, min=1e-12)
 
 
@@ -87,8 +102,8 @@ def nystrom_serve_cache(factors) -> dict:
     """K-sized serve operands from :func:`nystrom_factors`:
     ``Ainv`` = L_KK^{-1}, ``U`` = W W^T, ``walpha`` = W alpha."""
     L, W, alpha = factors["L_KK"], factors["W"], factors["alpha"]
-    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
-    return {"Ainv": _tri_solve(L, eye), "U": W @ W.T, "walpha": W @ alpha}
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand(L.shape)
+    return {"Ainv": _tri_solve(L, eye), "U": W @ W.mT, "walpha": _mv(W, alpha)}
 
 
 def nystrom_apply_cached(factors, G_star_K, g_star_star, noise_var):
@@ -99,8 +114,8 @@ def nystrom_apply_cached(factors, G_star_K, g_star_star, noise_var):
         factors["Ainv"], factors["U"], factors["L_M"], factors["walpha"],
     )
     s2 = noise_var + DEFAULT_JITTER
-    B = Ainv @ G_star_K.T  # (K, t)
-    mean = B.T @ walpha
+    B = Ainv @ G_star_K.mT  # (K, t)
+    mean = _mv(B.mT, walpha)
     P = (U - U @ _cho_solve(Lm, U)) / s2  # (K, K)
-    var = g_star_star - torch.sum(B * (P @ B), dim=0)
+    var = g_star_star - torch.sum(B * (P @ B), dim=-2)
     return mean, torch.clamp(var, min=1e-12)

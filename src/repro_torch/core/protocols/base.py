@@ -11,9 +11,10 @@
   ``params/…``, ``y``, ``factors/…``, ``data/…``, ``wire/…``, ``stream/…``).
 
 Artifacts are dataclasses of tensors on one device (``art.device``);
-:func:`predict` serves on that device.  Streaming ``update`` (slice 3) and
-degraded serving (slice 4) come later; the ``stream`` leaves are kept so
-checkpoints stay format v6.
+:func:`predict` serves on that device, optionally with a machine
+availability mask (``available=``) that the fusing protocols renormalize
+over.  Streaming ``update`` (slice 3) and ``health`` (slice 4) come later;
+the ``stream`` leaves are kept so checkpoints stay format v6.
 """
 from __future__ import annotations
 
@@ -42,6 +43,7 @@ __all__ = [
     "artifact_arrays",
     "artifact_from_arrays",
     "resolve_device",
+    "params_on",
 ]
 
 
@@ -56,6 +58,15 @@ def resolve_device(device=None) -> torch.device:
             "is available; pass device=\"cpu\" to run on the CPU"
         )
     return device
+
+
+def params_on(params, device):
+    """Starting hyperparameters as float32 tensors on ``device``; None
+    stays None (``train_gp`` then starts from its defaults)."""
+    if params is None:
+        return None
+    return GPParams(*(torch.as_tensor(a, dtype=torch.float32, device=device)
+                      for a in params))
 
 
 def _numpy(a) -> np.ndarray:
@@ -99,6 +110,14 @@ def pad_parts(parts, device=None) -> PaddedShards:
         mask[j, : lengths[j]] = 1.0
     to = lambda a: torch.from_numpy(a).to(device)
     return PaddedShards(to(X), to(y), to(mask), lengths)
+
+
+def _mask_gram(G, mask):
+    """Zero padded rows/cols and pin their diagonal to 1 so the Cholesky
+    stays SPD.  A point with k(., pad) = 0 and y_pad = 0 contributes
+    nothing to the posterior, so the padded program answers as the
+    unpadded one.  Batched over leading axes."""
+    return G * (mask[..., :, None] * mask[..., None, :]) + torch.diag_embed(1.0 - mask)
 
 
 @dataclasses.dataclass
@@ -225,21 +244,46 @@ def fit(parts, cfg, params: GPParams | None = None, device=None) -> FittedProtoc
     return PROTOCOLS.get(cfg.protocol).fit(parts, cfg, params, resolve_device(device))
 
 
-def predict(art: FittedProtocol, X_star):
+def _availability(art: FittedProtocol, available):
+    """Normalize a machine-availability mask to an (m,) float32 tensor on
+    the artifact's device, or ``None`` for the all-alive path.  ``None`` in
+    means "derive from the artifact": machines whose fit-time shards were
+    empty are marked down."""
+    m = len(art.fit_lengths)
+    if available is None:
+        if all(n > 0 for n in art.fit_lengths):
+            return None
+        av = np.asarray([1.0 if n > 0 else 0.0 for n in art.fit_lengths], np.float32)
+        return torch.from_numpy(av).to(art.device)
+    av = _numpy(available).astype(np.float32).reshape(-1)
+    if av.shape[0] != m:
+        raise ValueError(
+            f"available mask has {av.shape[0]} entries for m={m} machines"
+        )
+    return torch.from_numpy((av > 0).astype(np.float32)).to(art.device)
+
+
+def predict(art: FittedProtocol, X_star, available=None):
     """Serve one query batch from a fitted artifact: (mean, var) at X_star,
     on the artifact's device, from the cached factors only.
+
+    ``available``: optional (m,) machine-availability mask (1 = alive) for
+    degraded serving — the broadcast/PoE fusions renormalize over the
+    surviving experts; the center serves its factor set regardless (it
+    holds everything).  ``None`` derives the mask from the artifact.
 
     Tripwire: non-finite query rows are zeroed before the kernel map (one
     NaN row would otherwise poison the batch) and answered with the prior
     predictive; for finite inputs every select is an identity."""
     X_star = torch.as_tensor(X_star, dtype=torch.float32, device=art.device)
+    avail = _availability(art, available)
     p = art.params
     noise = torch.exp(p.log_noise)
     finite_row = torch.isfinite(X_star).all(dim=-1)
     Xq = torch.where(finite_row[:, None], X_star, torch.zeros_like(X_star))
     sq_star = torch.sum(Xq**2, -1)
     g_ss = prior_diag(art.kernel, p, sq_star)
-    mu, var = PROTOCOLS.get(art.protocol).predict(art, Xq, sq_star, g_ss, noise)
+    mu, var = PROTOCOLS.get(art.protocol).predict(art, Xq, sq_star, g_ss, noise, avail)
     ok = finite_row & torch.isfinite(mu) & torch.isfinite(var)
     mu = torch.where(ok, mu, torch.zeros_like(mu))
     var = torch.where(ok, var, g_ss + noise)  # degrade to the prior, not NaN
@@ -302,8 +346,9 @@ def save_artifact(art: FittedProtocol, directory: str, step: int = 0) -> str:
 def artifact_from_arrays(meta: dict, arrays: dict, device=None) -> FittedProtocol:
     """Build the port's artifact on ``device`` from a checkpoint's ``meta``
     and its arrays (numpy, keyed as in the reference's npz) — a checkpoint
-    of either package.  This slice serves v5/v6 center Nyström artifacts;
-    older formats and other protocols raise ``NotImplementedError``."""
+    of either package.  This slice serves v5/v6 artifacts of the center
+    and broadcast (Nyström) and poe (dense) protocols; older formats and
+    other gram modes raise ``NotImplementedError``."""
     from ..config import ARTIFACT_FORMAT_VERSION, DGPConfig
 
     version = meta.get("format_version", 1)
@@ -319,12 +364,13 @@ def artifact_from_arrays(meta: dict, arrays: dict, device=None) -> FittedProtoco
         raise NotImplementedError(
             f"format-v{version} checkpoints (no config block or no stream/* "
             "arrays) are not ported yet: the legacy loaders are at the head "
-            "of queue 1, slice 2 in ROADMAP.md"
+            "of queue 1, slice 2b in ROADMAP.md"
         )
-    if meta["gram_mode"] != "nystrom":
+    wanted = "dense" if protocol == "poe" else "nystrom"
+    if meta["gram_mode"] != wanted:
         raise NotImplementedError(
-            f"gram_mode={meta['gram_mode']!r} is not ported yet (queue 1, "
-            "slice 2 in ROADMAP.md)"
+            f"{protocol} gram_mode={meta['gram_mode']!r} is not ported yet "
+            "(queue 1, slice 2b in ROADMAP.md)"
         )
     config = dataclasses.replace(DGPConfig.from_dict(meta["config"]), impl="batched")
     device = resolve_device(device)
@@ -342,7 +388,7 @@ def artifact_from_arrays(meta: dict, arrays: dict, device=None) -> FittedProtoco
         if arrays["wire/codes"].dtype != np.uint32:
             raise NotImplementedError(
                 "unpacked (pre-v3) wire codes are not ported yet (queue 1, "
-                "slice 2 in ROADMAP.md)"
+                "slice 2b in ROADMAP.md)"
             )
         wire = WireState(*(
             words_from_uint32(arrays["wire/codes"], device) if f.name == "codes"
@@ -350,7 +396,7 @@ def artifact_from_arrays(meta: dict, arrays: dict, device=None) -> FittedProtoco
             for f in dataclasses.fields(WireState)
         ))
     y = put("y")
-    if "valid" not in data:
+    if protocol == "center" and "valid" not in data:
         data["valid"] = torch.ones_like(y)
     stream = StreamState(*(put(k) for k in stream_keys))
     return FittedProtocol(

@@ -1,0 +1,225 @@
+"""§5.2 broadcast protocol — counterpart of
+``repro/core/protocols/broadcast.py``.
+
+Every machine broadcasts codes fitted against Qy = the sum of the *other*
+machines' covariances; each machine builds its own Nyström gram (its own
+block exact, the peers' reconstructed), forms a local predictive, and the
+per-point predictives are fused with a registered fusion rule (default:
+the KL barycenter, eqs. 62-64).  Hyperparameters are trained once, at
+machine 0 on its Nyström view, and shared.
+
+The m machines are a leading batch axis (the reference ``vmap``s them).
+With ``gram_backend="pallas"`` each batched product is ONE kernel launch:
+the own blocks A through ``gram`` on the flattened shards, the cross blocks
+B through ``qgram_packed`` straight from the packed words, and on every
+request the query products C through ``gram`` and the whole serve tail
+through the fused ``epilogue``.  This slice ports ``gram_mode="nystrom"``;
+``"direct"`` waits in slice 2b (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+
+from ...comm.accounting import row_bits
+from ..gp import GPParams, kernel_from_inner, train_gp
+from ..linalg_safe import DEFAULT_JITTER
+from ..nystrom import (
+    nystrom_apply, nystrom_apply_cached, nystrom_complete, nystrom_factors,
+    nystrom_serve_cache,
+)
+from ..registry import FUSIONS, SCHEMES, ProtocolSpec, register_protocol
+from .base import (
+    FittedProtocol, PaddedShards, StreamState, WireState, _mask_gram, pad_parts, params_on,
+)
+
+__all__ = []
+
+
+def _train_inner_products(shards: PaddedShards, wire: WireState, backend: str,
+                          pack_bits: int = 0):
+    """The query-independent inner products every machine's view is
+    assembled from, computed once at fit time:
+
+    A (m, n, n): own blocks Xs_i Xs_i^T
+    B (m, m, n, n): B[j, i] = X̂_j Xs_i^T (machine j's reconstruction
+    against machine i's exact rows; padded rows of j are zero)
+
+    backend="pallas": A is one ``gram`` launch over the flattened shards
+    (its diagonal blocks), B one ``qgram_packed`` launch over the machines,
+    read straight from the packed words (X̂_j = dequant(words_j) T_inv_j^T,
+    so <x̂_j, y> = qgram(words_j, y T_inv_j))."""
+    X = shards.X
+    m, n, d = X.shape
+    if backend == "pallas":
+        from ...kernels.gram.ops import gram as gram_kernel
+        from ...kernels.qgram.ops import qgram_packed_batched
+
+        flat = X.reshape(m * n, d)
+        full = gram_kernel(flat, flat).reshape(m, n, m, n)
+        A = torch.diagonal(full, dim1=0, dim2=2).permute(2, 0, 1)
+        proj = torch.einsum("Nd,jde->jNe", flat, wire.T_inv).contiguous()
+        B = qgram_packed_batched(
+            wire.codes, wire.rates, wire.scaled_cents, proj,
+            total_bits=pack_bits, mask=shards.mask,
+        )  # (m_j, n, m_i * n)
+        return A, B.reshape(m, n, m, n).permute(0, 2, 1, 3)
+    A = torch.einsum("ind,imd->inm", X, X)
+    B = torch.einsum("jnd,imd->jinm", wire.decoded, X)
+    return A, B
+
+
+def _star_exact_products(Xs, X_star, backend: str):
+    """C (m, t, n): X_star Xs_i^T — the query-time products against every
+    machine's EXACT shard (the Nyström bases); one ``gram`` launch over the
+    flattened shards under the pallas backend."""
+    m, n, d = Xs.shape
+    if backend == "pallas":
+        from ...kernels.gram.ops import gram as gram_kernel
+
+        C = gram_kernel(X_star, Xs.reshape(m * n, d))  # (t, m n)
+        return C.reshape(-1, m, n).permute(1, 0, 2)
+    return torch.einsum("td,ind->itn", X_star, Xs)
+
+
+def _fit_broadcast(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
+    if cfg.gram_mode != "nystrom":
+        raise NotImplementedError(
+            f"broadcast gram_mode={cfg.gram_mode!r} is not ported yet (queue 1, "
+            "slice 2b in ROADMAP.md)"
+        )
+    m = len(parts)
+    shards = pad_parts(parts, device)
+    d = shards.X.shape[-1]
+    kernel, backend = cfg.kernel, cfg.gram_backend
+    pack_bits = row_bits(cfg.bits_per_sample, d, cfg.max_bits)
+    run = SCHEMES.get(cfg.scheme).run(shards, cfg.bits_per_sample, cfg.max_bits,
+                                      "broadcast", 0)
+    wire, shards = run.state, run.shards
+    n_pad = shards.X.shape[1]
+    sq_exact = torch.sum(shards.X**2, -1)  # (m, n)
+    sq_dec = torch.sum(wire.decoded**2, -1)
+
+    # ---- train the shared hypers at machine 0 on its completed Nyström gram
+    # (unpadded slices; the inner products are param-independent constants)
+    L = shards.lengths
+    n0 = L[0]
+    A, B = _train_inner_products(shards, wire, backend, pack_bits)
+    ip_KK0 = A[0][:n0, :n0]
+    ip_KN0 = torch.cat([ip_KK0] + [B[j, 0][: L[j], :n0].T for j in range(1, m)], dim=1)
+    sq0 = sq_exact[0][:n0]
+    sq_cols0 = torch.cat([sq0] + [sq_dec[j][: L[j]] for j in range(1, m)])
+    y0 = torch.cat([shards.y[j, : L[j]] for j in range(m)])
+    X0 = torch.cat([shards.X[0, :n0]] + [wire.decoded[j, : L[j]] for j in range(1, m)])
+
+    def gram0(p):
+        G_KK = kernel_from_inner(kernel, p, ip_KK0, sq0, sq0)
+        G_KN = kernel_from_inner(kernel, p, ip_KN0, sq0, sq_cols0)
+        return nystrom_complete(G_KK, G_KN)
+
+    p = train_gp(X0, y0, kernel=kernel, params=params_on(params, device), steps=cfg.steps,
+                 lr=cfg.lr, gram_override=gram0)
+    noise = torch.exp(p.log_noise)
+
+    # ---- factorize every machine's local predictive at once (the
+    # reference's vmapped build); column block j of view i is machine j's
+    # reconstruction, except block i, which is exact
+    mask_flat = shards.mask.reshape(-1)
+    y_flat = (shards.y * shards.mask).reshape(-1)
+    ar = torch.arange(m, device=device)
+    blocks = B.permute(1, 0, 3, 2).clone()  # [i, j]: Xs_i X̂_j^T
+    blocks[ar, ar] = A
+    ip_KN = blocks.permute(0, 2, 1, 3).reshape(m, n_pad, m * n_pad)
+    sq_cols = sq_dec[None].repeat(m, 1, 1)
+    sq_cols[ar, ar] = sq_exact
+    sq_cols = sq_cols.reshape(m, m * n_pad)
+    G_KK = _mask_gram(kernel_from_inner(kernel, p, A, sq_exact, sq_exact), shards.mask)
+    G_KN = kernel_from_inner(kernel, p, ip_KN, sq_exact, sq_cols) * (
+        shards.mask[:, :, None] * mask_flat[None, None, :]
+    )
+    factors = nystrom_factors(G_KK, G_KN, y_flat.expand(m, -1), noise)
+    if cfg.serve_epilogue == "fused":
+        factors.update(nystrom_serve_cache(factors))
+    data = {"Xs": shards.X, "mask": shards.mask, "sq_exact": sq_exact, "sq_dec": sq_dec}
+    return FittedProtocol(
+        params=p, y=y_flat, factors=factors, data=data, wire=wire,
+        stream=StreamState.make(
+            shards.lengths, y_flat.shape[0], run.wire_bits, run.payload_bits,
+            run.integrity_bits, 0, device=device,
+        ),
+        protocol="broadcast", kernel=kernel, gram_mode=cfg.gram_mode,
+        fuse=cfg.fusion, gram_backend=backend, n_center=0,
+        fit_lengths=shards.lengths, block_order=None,
+        bits_per_sample=cfg.bits_per_sample, max_bits=cfg.max_bits,
+        impl=cfg.impl, scheme=cfg.scheme, config=cfg,
+    )
+
+
+def _expert_cross_gram(art, X_star, sq_star):
+    """G (m, t, n): each expert's masked cross-covariances to its exact
+    shard, from one batched query product."""
+    C = _star_exact_products(art.data["Xs"], X_star, art.gram_backend)
+    return kernel_from_inner(art.kernel, art.params, C, sq_star,
+                             art.data["sq_exact"]) * art.data["mask"][:, None, :]
+
+
+def _predict_broadcast_experts(art, X_star, sq_star, g_ss, noise):
+    """(m, t) per-expert predictives (mus, s2s), unfused."""
+    G = _expert_cross_gram(art, X_star, sq_star)
+    if "Ainv" in art.factors:
+        return nystrom_apply_cached(art.factors, G, g_ss, noise)
+    return nystrom_apply(art.factors, G, g_ss, noise)
+
+
+def _uses_fused_epilogue(art, spec) -> bool:
+    """This artifact serves through the one-launch fused epilogue: pallas
+    backend, cached Nyström serve operands, a fusion with moment rows."""
+    return (
+        art.gram_backend == "pallas"
+        and art.gram_mode == "nystrom"
+        and "Ainv" in art.factors
+        and spec.moments is not None
+        and spec.finalize is not None
+    )
+
+
+def _epilogue_projector(art, noise):
+    """The woodbury quad-form projector P = (U - U M^{-1} U) / s2 per
+    expert, rebuilt on every request as the reference does (caching it
+    would change the checkpoint's keys)."""
+    U = art.factors["U"]
+    return (U - U @ torch.cholesky_solve(U, art.factors["L_M"])) / (noise + DEFAULT_JITTER)
+
+
+def _fused_epilogue_operands(art, X_star, sq_star, g_ss, noise, avail):
+    """The ``epilogue`` operands of one request, contiguous and in the
+    kernel's order: (G, Ainv, P, walpha, gss, prior, w)."""
+    f = art.factors
+    G = _expert_cross_gram(art, X_star, sq_star)
+    w = torch.ones(G.shape[0], dtype=torch.float32, device=G.device) if avail is None else avail
+    ops = (G, f["Ainv"], _epilogue_projector(art, noise), f["walpha"], g_ss, g_ss + noise, w)
+    return tuple(a.contiguous() for a in ops)
+
+
+def _predict_broadcast_fused(art, spec, X_star, sq_star, g_ss, noise, avail):
+    """One-launch serve tail: every expert's cached apply and the fusion's
+    moment rows in one ``epilogue`` call; only ``finalize`` stays outside."""
+    from ...kernels.epilogue.ops import epilogue_moments
+
+    ops = _fused_epilogue_operands(art, X_star, sq_star, g_ss, noise, avail)
+    S = epilogue_moments(*ops, fuse=art.fuse)
+    return spec.finalize(S, ops[0].shape[0], ops[5])
+
+
+def _predict_broadcast(art: FittedProtocol, X_star, sq_star, g_ss, noise, avail=None):
+    spec = FUSIONS.get(art.fuse)
+    if _uses_fused_epilogue(art, spec):
+        return _predict_broadcast_fused(art, spec, X_star, sq_star, g_ss, noise, avail)
+    mus, s2s = _predict_broadcast_experts(art, X_star, sq_star, g_ss, noise)
+    if avail is None:
+        return spec.fuse(mus, s2s, g_ss + noise)
+    # degraded serving: the fusion renormalizes over surviving machines
+    return spec.fuse(mus, s2s, g_ss + noise, avail)
+
+
+register_protocol(ProtocolSpec(name="broadcast", fit=_fit_broadcast,
+                               predict=_predict_broadcast))

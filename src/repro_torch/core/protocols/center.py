@@ -11,7 +11,7 @@ With ``gram_backend="pallas"`` the inner products come from the
 hand-written Hopper kernels: ``gram`` for the center's exact rows and every
 query, ``qgram_packed`` for the reconstructed rows, read straight from the
 packed words.  This slice ports ``gram_mode="nystrom"``;
-``nystrom_fitc``/``direct`` are at the head of slice 2.
+``nystrom_fitc``/``direct`` wait in slice 2b (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -21,13 +21,13 @@ import numpy as np
 import torch
 
 from ...comm.accounting import row_bits
-from ..gp import GPParams, gram_fn, init_params, kernel_from_inner, train_gp
+from ..gp import GPParams, gram_fn, kernel_from_inner, train_gp
 from ..nystrom import (
     nystrom_apply, nystrom_apply_cached, nystrom_complete, nystrom_factors,
     nystrom_serve_cache,
 )
 from ..registry import SCHEMES, ProtocolSpec, register_protocol
-from .base import FittedProtocol, StreamState, WireState, pad_parts
+from .base import FittedProtocol, StreamState, WireState, pad_parts, params_on
 
 __all__ = ["CenterGP"]
 
@@ -36,7 +36,7 @@ def _check_mode(gram_mode: str):
     if gram_mode != "nystrom":
         raise NotImplementedError(
             f"gram_mode={gram_mode!r} is not ported yet (head of queue 1, "
-            "slice 2 in ROADMAP.md)"
+            "slice 2b in ROADMAP.md)"
         )
 
 
@@ -143,13 +143,8 @@ def _fit_center(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
         block_lengths=shards.lengths,
         pack_bits=row_bits(cfg.bits_per_sample, d, cfg.max_bits),
     )
-    if params is None:
-        params = init_params(device=device)
-    else:
-        params = GPParams(*(torch.as_tensor(a, dtype=torch.float32, device=device)
-                            for a in params))
     p = train_gp(
-        X_recon, y_all, kernel=cfg.kernel, params=params, steps=cfg.steps,
+        X_recon, y_all, kernel=cfg.kernel, params=params_on(params, device), steps=cfg.steps,
         lr=cfg.lr, gram_override=builder._gram,
     )
     G_KK, G_KN = builder.gram_blocks(p)
@@ -175,7 +170,8 @@ def _fit_center(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
     )
 
 
-def _predict_center(art: FittedProtocol, X_star, sq_star, g_ss, noise):
+def _predict_center(art: FittedProtocol, X_star, sq_star, g_ss, noise, avail=None):
+    # the center holds every machine's rows: availability changes nothing
     p = art.params
     Xc = art.data["Xc"]
     if art.gram_backend == "pallas":

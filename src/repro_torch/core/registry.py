@@ -6,8 +6,9 @@ share one table each.  The port is built slice by slice: a name the
 reference knows but the port has not built yet is registered as *pending*
 with the slice that brings it.  It passes config validation (the config
 fields and their values are the reference's), and looking it up raises
-``NotImplementedError`` naming that slice.  ``FUSIONS`` holds names only,
-for config validation: the center protocol fuses nothing.
+``NotImplementedError`` naming that slice.  ``FUSIONS`` holds
+:class:`FusionSpec` entries, registered by ``core/fusion.py`` (``kl``) and
+``core/poe.py`` (the PoE family).
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ import dataclasses
 from typing import Any, Callable
 
 __all__ = [
-    "Registry", "KernelSpec", "SchemeSpec", "ProtocolSpec",
+    "Registry", "KernelSpec", "FusionSpec", "SchemeSpec", "ProtocolSpec",
     "KERNELS", "SCHEMES", "FUSIONS", "PROTOCOLS",
-    "register_kernel", "register_scheme", "register_protocol",
+    "register_kernel", "register_fusion", "register_scheme",
+    "register_protocol",
 ]
 
 
@@ -86,6 +88,22 @@ class KernelSpec:
 
 
 @dataclasses.dataclass(frozen=True)
+class FusionSpec:
+    """How per-machine predictive Gaussians meet: ``fuse`` on stacked
+    ``(m, t)`` predictives, taking optional availability weights ``w``
+    (m,) for degraded serving.  ``moments`` maps one machine's predictive to
+    its (3, t) moment rows and ``finalize`` maps the sum of those rows over
+    machines, with the fleet size ``m``, back to the fused ``(mu, s2)`` —
+    the decomposition the fused serve epilogue computes in one kernel.  (The
+    reference's mesh form ``fuse_psum`` comes with the mesh slice.)"""
+
+    name: str
+    fuse: Callable  # (mus, s2s, prior_var, w=None) -> (mu, s2)
+    moments: Callable | None = None  # (mu_i, s2_i, prior_var, w_i=None) -> (3, t)
+    finalize: Callable | None = None  # (S, m, prior_var) -> (mu, s2)
+
+
+@dataclasses.dataclass(frozen=True)
 class SchemeSpec:
     """A wire scheme: ``run(shards, bits, max_bits, mode, center)`` executes
     the fit-time wire protocol for every machine at once and returns a
@@ -102,7 +120,7 @@ class ProtocolSpec:
 
     name: str
     fit: Callable  # (parts, cfg, params, device) -> FittedProtocol
-    predict: Callable  # (art, X_star, sq_star, g_ss, noise) -> (mu, s2)
+    predict: Callable  # (art, X_star, sq_star, g_ss, noise, avail) -> (mu, s2)
 
 
 KERNELS = Registry("kernel")
@@ -111,15 +129,15 @@ FUSIONS = Registry("fusion")
 PROTOCOLS = Registry("protocol")
 
 # the reference's builtin names, pending until their slice lands
-for _name in ("kl", "poe", "gpoe", "bcm", "rbcm"):
-    FUSIONS.register(_name, _name)
 SCHEMES.pending("vq", "queue 1, slice 6")
-PROTOCOLS.pending("broadcast", "queue 1, slice 2")
-PROTOCOLS.pending("poe", "queue 1, slice 2")
 
 
 def register_kernel(spec: KernelSpec) -> KernelSpec:
     return KERNELS.register(spec.name, spec)
+
+
+def register_fusion(spec: FusionSpec) -> FusionSpec:
+    return FUSIONS.register(spec.name, spec)
 
 
 def register_scheme(spec: SchemeSpec) -> SchemeSpec:

@@ -23,7 +23,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "Built", "build_dir", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gram", "qgram_packed")
+SOURCES = ("gram", "qgram_packed", "epilogue")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

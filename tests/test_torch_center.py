@@ -214,7 +214,8 @@ def test_port_roundtrip_is_bitwise(fits, tmp_path):
 def test_cpu_path_launches_no_kernel():
     runtime.reset_launches()
     _port_fit("pallas", 1)
-    assert runtime.launches() == {"gram": 0, "qgram_packed": 0}
+    counts = runtime.launches()
+    assert {"gram", "qgram_packed"} <= set(counts) and not any(counts.values())
 
 
 def test_nonfinite_query_rows_get_the_prior(fits):
@@ -235,9 +236,9 @@ def test_unported_paths_raise_naming_their_slice():
         est.update(None, None, None)
     with pytest.raises(NotImplementedError, match="slice 4"):
         est.health(None)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        DistributedGP(DGPConfig(protocol="broadcast"), device="cpu").fit(parts=PARTS)
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="slice 2b"):
+        DistributedGP(DGPConfig(gram_mode="nystrom_fitc"), device="cpu").fit(parts=PARTS)
+    with pytest.raises(NotImplementedError, match="slice 2b"):
         DistributedGP(DGPConfig(gram_mode="direct"), device="cpu").fit(parts=PARTS)
     with pytest.raises(ValueError, match="known protocols"):
         DGPConfig(protocol="nope")

@@ -6,7 +6,13 @@ tests/test_torch_gpu.py``.  Without a card every test skips (the decision is
 taken inside the ``cuda`` fixture, so every worker collects the same tests).
 Each kernel is held against its plain PyTorch version on the same inputs:
 fp32 sums in different orders, no TF32, so rtol 1e-5 with atol 1e-5 times
-the output's scale.
+the output's scale — except the epilogue, whose variance cancels
+(s2 = gss - quad): it is held within ``epilogue_error_bound``, the fp32
+rounding of its sums against the sum of their absolute terms, carried
+through each fusion's rows (tests/test_torch_epilogue.py checks that bound
+against a float64 evaluation).  The broadcast and poe paths serve a
+checkpoint on the card and on the CPU: 1e-4 of the output's scale, the
+fused serve's cancellation at this small, well-conditioned size.
 """
 import numpy as np
 import pytest
@@ -17,6 +23,11 @@ from repro_torch.core import DGPConfig, DistributedGP  # noqa: E402
 from repro_torch.core import torch_scheme as TS  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.gram.ops import gram, gram_cuda, gram_plain  # noqa: E402
+from repro_torch.kernels.epilogue.cases import epilogue_operands  # noqa: E402
+from repro_torch.kernels.epilogue.ops import epilogue_cuda  # noqa: E402
+from repro_torch.kernels.epilogue.ref import (  # noqa: E402
+    EPILOGUE_FUSES, epilogue_error_bound, epilogue_moments_plain,
+)
 from repro_torch.kernels.qgram.ops import (  # noqa: E402
     qgram_packed_cuda, qgram_packed_plain,
 )
@@ -110,3 +121,61 @@ def test_main_path_on_card_launches_both_kernels(cuda, tmp_path):
     mu_c, var_c = cpu.predict(cpu.load(str(tmp_path)), X[:64])
     _close(mu.cpu().numpy(), mu_c.numpy())
     _close(var.cpu().numpy(), var_c.numpy())
+
+
+@pytest.mark.parametrize("fuse", EPILOGUE_FUSES)
+@pytest.mark.parametrize("m,t,K,kind,floored,lost", [
+    (40, 128, 25, "serve_cache", (), ()),          # one broadcast request at Fig. 6
+    (40, 4449, 25, "serve_cache", (), ()),         # the whole test set: expert groups
+    (5, 37, 19, "serve_cache", (0, 5, 36), (1,)),  # ragged, floored s2, a lost expert
+    (3, 130, 300, "generic", (2,), ()),            # large K: chunked operands
+])
+def test_epilogue_kernel(cuda, fuse, m, t, K, kind, floored, lost):
+    ops = epilogue_operands(m, t, K, seed=m + t + K, kind=kind, floored=floored,
+                            lost=lost, device=cuda)
+    before = runtime.family("epilogue").launches
+    got = epilogue_cuda(*ops, fuse=fuse)
+    again = epilogue_cuda(*ops, fuse=fuse)
+    torch.cuda.synchronize()
+    assert runtime.family("epilogue").launches == before + 2
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    want = epilogue_moments_plain(*ops, fuse=fuse)
+    bound = epilogue_error_bound(*ops, fuse=fuse)
+    assert bool(torch.isfinite(got).all())
+    excess = float(((got - want).abs() - bound).max())
+    assert excess <= 0, excess
+
+
+def _fig6_like(seed=0, n=320, m=8):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 21)).astype(np.float32)
+    y = (np.sin(X[:, 0]) + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return [(X[j::m], y[j::m]) for j in range(m)], X[:64]
+
+
+@pytest.mark.parametrize("protocol,fusion", [("broadcast", "kl"), ("broadcast", "rbcm"),
+                                             ("poe", "rbcm")])
+def test_broadcast_and_poe_on_card(cuda, tmp_path, protocol, fusion):
+    parts, Xq = _fig6_like()
+    cfg = DGPConfig(protocol=protocol, fusion=fusion, gram_backend="pallas", steps=10)
+    est = DistributedGP(cfg)
+    runtime.reset_launches()
+    art = est.fit(parts=parts)
+    fit_launches = runtime.launches()
+    assert fit_launches["gram"] > 0
+    if protocol == "broadcast":
+        assert fit_launches["qgram_packed"] > 0
+    before = runtime.launches()
+    mu, var = est.predict(art, Xq)
+    after = runtime.launches()
+    assert after["gram"] == before["gram"] + 1
+    assert after["epilogue"] == before["epilogue"] + (protocol == "broadcast")
+    est.save(art, str(tmp_path))
+    mu2, var2 = est.predict(est.load(str(tmp_path)), Xq)
+    assert torch.equal(mu, mu2) and torch.equal(var, var2)
+    cpu = DistributedGP(cfg, device="cpu")
+    mu_c, var_c = cpu.predict(cpu.load(str(tmp_path)), Xq)
+    for got, want in ((mu, mu_c), (var, var_c)):
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(np.abs(want).max())))

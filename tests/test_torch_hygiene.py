@@ -36,6 +36,12 @@ def test_no_jax_or_repro_import_in_the_package():
     assert not bad, bad
 
 
+def test_chip_smoke_imports_no_jax_or_repro():
+    bad = [name for name in _imports(PKG.parents[1] / "chip_smoke.py")
+           if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
 def test_cpu_fit_leaves_no_jax_or_repro_module_loaded():
     code = """
 import sys
@@ -44,10 +50,12 @@ from repro_torch.core import DGPConfig, DistributedGP
 rng = np.random.default_rng(0)
 X = rng.normal(size=(48, 4)).astype(np.float32)
 y = X[:, 0].copy()
-est = DistributedGP(DGPConfig(gram_backend="pallas", steps=2), device="cpu")
-art = est.fit(X, y, m=4)
-mu, var = est.predict(art, X[:5])
-assert mu.shape == (5,) and bool((var > 0).all())
+for protocol in ("center", "broadcast", "poe"):
+    est = DistributedGP(DGPConfig(protocol=protocol, gram_backend="pallas", steps=2),
+                        device="cpu")
+    art = est.fit(X, y, m=4)
+    mu, var = est.predict(art, X[:5])
+    assert mu.shape == (5,) and bool((var > 0).all())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("BAD", bad)

@@ -148,7 +148,8 @@ def test_launch_counters_stay_zero_on_cpu():
         TS.words_from_uint32(words), torch.from_numpy(rates), torch.from_numpy(cents),
         torch.from_numpy(proj), total_bits=24,
     )
-    assert runtime.launches() == {"gram": 0, "qgram_packed": 0}
+    counts = runtime.launches()
+    assert {"gram", "qgram_packed"} <= set(counts) and not any(counts.values())
 
 
 def test_dispatch_sends_cpu_to_plain_and_refuses_other_devices():
