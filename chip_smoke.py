@@ -9,7 +9,7 @@ Phases, in order; any failure exits nonzero (nothing is caught and turned
 into a pass):
 
 1. torch/CUDA versions and the card's name and power limit (nvidia-smi).
-2. Build the three Hopper kernels from ``src/repro_torch/kernels/csrc``
+2. Build the four Hopper kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, in parallel): build time, registers and shared memory
    per kernel.
 3. Each kernel (and the gram backward) against its plain PyTorch version on
@@ -17,9 +17,12 @@ into a pass):
    (40 machines x 1000 rows, d = 21, 4449 queries) and the edge layouts
    (R = 24 and R = 100 words, width-0 dims, masked rows, ragged tiles; for
    the epilogue all six fusion forms, ragged t and K, a large K, an expert
-   of weight 0 and variances at their 1e-12 floor) — with the max abs /
-   relative error against the stated tolerance, and the device time of the
-   kernel, the plain version and ``torch.matmul`` where it applies.
+   of weight 0 and variances at their 1e-12 floor; for the fleet epilogue
+   all six fusion forms at a fleet flush, a ragged case and serve-sized
+   requests, each tenant also against the single-tenant kernel) — with the
+   max abs / relative error against the stated tolerance, and the device
+   time of the kernel, the plain version and ``torch.matmul`` where it
+   applies.
 4. The paths at the paper's Fig. 6 SARCOS setting (N = 1000, d = 21,
    m = 40, SE kernel, R = 24 bits/sample, 150 Adam steps, 4449 test points
    in 35 batches of 128), each on the card with ``gram_backend="pallas"``
@@ -34,6 +37,16 @@ into a pass):
       ``epilogue`` exactly once per request.
    c. the zero-rate rBCM baseline (``protocol="poe"``): fit and serve
       through ``gram``; its SMSE beside the other two.
+   d. multi-tenant fleet serving: 64 tenants, exact y-scaled variants of
+      b's artifact, in an ``ArtifactStore``; a ``FleetServer`` (cache 32
+      artifacts, flush width 16, 32 stack slots, 2 ms budget) serves 512
+      zipf(1.1) requests of 16 test points after a warm pass.  Checks:
+      one ``epilogue_fleet`` launch per fused flush (and no single-tenant
+      ``epilogue``), no stacked tensor reallocated in the steady state, a
+      stacked flush equal to the serial ``predict`` of each tenant within
+      the epilogue's rounding bound, and bitwise tenant isolation under a
+      neighbour's NaN request and degraded mask; the serial-vs-stacked q/s
+      on 16 resident tenants is printed.
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -79,6 +92,7 @@ def main():
 
     from repro_torch.core import DGPConfig, DistributedGP
     from repro_torch.core import torch_scheme as TS
+    from repro_torch.core.fleet import artifact_nbytes
     from repro_torch.core.gp import kernel_from_inner, prior_diag
     from repro_torch.core.protocols.base import split_machines
     from repro_torch.core.protocols.broadcast import (
@@ -89,11 +103,15 @@ def main():
     from repro_torch.kernels import build, runtime
     from repro_torch.kernels.gram.ops import gram, gram_cuda, gram_plain
     from repro_torch.kernels.qgram.ops import qgram_packed_cuda, qgram_packed_plain
-    from repro_torch.kernels.epilogue.cases import epilogue_operands
-    from repro_torch.kernels.epilogue.ops import epilogue_cuda, epilogue_moments
-    from repro_torch.kernels.epilogue.ref import (
-        EPILOGUE_FUSES, epilogue_error_bound, epilogue_moments_plain,
+    from repro_torch.kernels.epilogue.cases import epilogue_fleet_operands, epilogue_operands
+    from repro_torch.kernels.epilogue.ops import (
+        epilogue_cuda, epilogue_fleet_cuda, epilogue_moments, plan, plan_fleet,
     )
+    from repro_torch.kernels.epilogue.ref import (
+        EPILOGUE_FUSES, epilogue_error_bound, epilogue_fleet_error_bound,
+        epilogue_moments_fleet_plain, epilogue_moments_plain,
+    )
+    from repro_torch.launch.fleet import FleetServer, build_fleet, serve_loop, zipf_tenants
 
     dev = torch.device("cuda")
 
@@ -118,7 +136,7 @@ def main():
 
     # ---- 3. kernels against their plain versions ---------------------------
     gen = torch.Generator().manual_seed(0)
-    results = {"gram": [], "qgram_packed": [], "epilogue": []}
+    results = {"gram": [], "qgram_packed": [], "epilogue": [], "epilogue_fleet": []}
 
     def device_ms(fn, reps):
         """Device time per call: ``reps`` calls captured in a CUDA graph,
@@ -305,6 +323,52 @@ def main():
     epilogue_case("ragged + w zeros + floors: m=5 t=37 K=19", 5, 37, 19,
                   EPILOGUE_FUSES, 50, floored=(0, 36), lost=(1,))
 
+    def fleet_case(tag, T, m, t, K, fuses, reps, **kw):
+        ops = epilogue_fleet_operands(T, m, t, K, seed=T + m + t + K, device=dev, **kw)
+        same_plan = plan_fleet(T, m, t, K) == plan(m, t, K)
+        rows = []
+        for fuse in fuses:
+            got = epilogue_fleet_cuda(*ops, fuse=fuse)
+            again = epilogue_fleet_cuda(*ops, fuse=fuse)
+            want = epilogue_moments_fleet_plain(*ops, fuse=fuse)
+            tol_rows = epilogue_fleet_error_bound(*ops, fuse=fuse)
+            # each tenant against the single-tenant kernel on its operands:
+            # the same bits where both plan the same tile and expert groups,
+            # else both within the bound of the plain version
+            single = torch.stack([epilogue_cuda(*(a[n] for a in ops), fuse=fuse)
+                                  for n in range(T)])
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            worst = float(((got - want).abs() / tol_rows).max())
+            worst_single = float(((got - single).abs() / (2 * tol_rows)).max())
+            print(f"[kernel] epilogue_fleet {tag + ' ' + fuse:43s} max_abs_err {err:.3e} "
+                  f"worst err/bound {worst:.3e}  vs single-tenant kernel: "
+                  f"{'same bits' if torch.equal(got, single) else f'worst/(2 bound) {worst_single:.3e}'}",
+                  flush=True)
+            check(bool(torch.isfinite(got).all()), f"epilogue_fleet {tag} {fuse}: non-finite output")
+            check(torch.equal(got, again), f"epilogue_fleet {tag} {fuse}: two launches differ")
+            check(worst <= 1.0, f"epilogue_fleet {tag} {fuse}: error above the per-tenant bound")
+            check(torch.equal(got, single) if same_plan else worst_single <= 1.0,
+                  f"epilogue_fleet {tag} {fuse}: a tenant disagrees with the single-tenant kernel")
+            row = {"tag": f"{tag} {fuse}", "err": err}
+            row["ms"] = device_ms(lambda: epilogue_fleet_cuda(*ops, fuse=fuse), reps)
+            row["plain_ms"] = device_ms(lambda: epilogue_moments_fleet_plain(*ops, fuse=fuse),
+                                        reps)
+            row["library_ms"] = None  # no single PyTorch call computes it
+            nbytes = 4 * T * (m * t * K + 2 * m * K * K + m * K + 2 * t + m + 3 * t)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, T * m * t * (4 * K * K + 4 * K + 6))
+            print(f"[time]   epilogue_fleet {tag + ' ' + fuse:43s} kernel {row['ms']:.4f} ms  "
+                  f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.7f} ms "
+                  f"({row['bound_by']})", flush=True)
+            results["epilogue_fleet"].append(row)
+            rows.append(row)
+        return rows
+
+    main_fleet = fleet_case("flush: T=16 m=40 t=16 K=25", 16, 40, 16, 25, EPILOGUE_FUSES, 200)
+    fleet_case("ragged + w zeros + floors: T=5 m=5 t=37 K=19", 5, 5, 37, 19, EPILOGUE_FUSES,
+               50, floored=(0, 36), lost=(1,))
+    fleet_case("serve-sized: T=8 m=40 t=128 K=25", 8, 40, 128, 25, ("kl", "rbcm"), 50)
+
     # ---- 4. the paths: Fig. 6 SARCOS, fit -> save -> load -> serve --------
     X_tr, y_tr, X_te, y_te = regression_dataset("sarcos", seed=0)
     parts = split_machines(X_tr, y_tr, 40, torch.Generator().manual_seed(0))
@@ -381,6 +445,20 @@ def main():
         answers = [cpu_est.predict(cpu_art, xb) for xb in batches]
         return cpu_art, torch.cat([a[0] for a in answers]), torch.cat([a[1] for a in answers])
 
+    def finalize_tol(spec, S, E, m, prior):
+        """Per-query tolerances of (mu, var) from moment rows S known to
+        within E: the largest change over the eight corners of S +- E
+        carried through the fusion's finalize, plus 8 ulps for the
+        finalize's own rounding."""
+        mu0, var0 = spec.finalize(S, m, prior)
+        tol_mu, tol_var = torch.zeros_like(mu0), torch.zeros_like(var0)
+        for signs in itertools.product((-1.0, 1.0), repeat=3):
+            shift = torch.tensor(signs, device=S.device)[:, None] * E
+            mu_s, var_s = spec.finalize(S + shift, m, prior)
+            tol_mu = torch.maximum(tol_mu, (mu_s - mu0).abs())
+            tol_var = torch.maximum(tol_var, (var_s - var0).abs())
+        return tol_mu + 8 * U32 * mu0.abs(), tol_var + 8 * U32 * var0.abs()
+
     def agree(name, mu_c, var_c, mu, var, tol_mu, tol_var):
         d_mu = (mu_c - mu.cpu()).abs()
         d_var = (var_c - var.cpu()).abs()
@@ -442,15 +520,8 @@ def main():
     G_err = Gt * ((4 * d + 9) * U32 * dist_mag / torch.exp(p.log_b) + 4 * U32)
     E = epilogue_error_bound(Gt, Ainv, P, walpha, g_ss, prior, w, fuse="kl",
                              P_mag=P_mag, G_err=G_err)
-    spec, m = FUSIONS.get("kl"), Gt.shape[0]
-    mu0, var0 = spec.finalize(S, m, prior)
-    tol_mu, tol_var = torch.zeros_like(mu0), torch.zeros_like(var0)
-    for signs in itertools.product((-1.0, 1.0), repeat=3):
-        mu_s, var_s = spec.finalize(S + torch.tensor(signs)[:, None] * E, m, prior)
-        tol_mu = torch.maximum(tol_mu, (mu_s - mu0).abs())
-        tol_var = torch.maximum(tol_var, (var_s - var0).abs())
-    agree("broadcast", mu_c, var_c, bcast["mu"], bcast["var"],
-          tol_mu + 8 * U32 * mu0.abs(), tol_var + 8 * U32 * var0.abs())
+    tol_mu, tol_var = finalize_tol(FUSIONS.get("kl"), S, E, Gt.shape[0], prior)
+    agree("broadcast", mu_c, var_c, bcast["mu"], bcast["var"], tol_mu, tol_var)
 
     # where a broadcast request's time goes: the steps of the fused serve,
     # each timed apart on the host clock with a synchronize after it
@@ -498,15 +569,134 @@ def main():
     for ck in (center["ckpt"], bcast["ckpt"]):
         shutil.rmtree(ck, ignore_errors=True)
 
+    # d. multi-tenant fleet serving of b's artifact (Fig. 6 SARCOS broadcast)
+    n_tenants, width, t_req, n_req = 64, 16, 16, 512
+    est_b, art_b = DistributedGP(cfg_b), bcast["art"]
+    store_dir = ROOT / "build" / "chip_smoke_fleet_store"
+    shutil.rmtree(store_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    store, tids = build_fleet([art_b], n_tenants, str(store_dir))
+    print(f"[fleet] stored {n_tenants} tenants ({artifact_nbytes(art_b) / 1e6:.1f} MB each) "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    server = FleetServer(store, cache_artifacts=32, slots=width, budget_ms=2.0,
+                         stack_slots=32)
+    stream = zipf_tenants(tids, n_req, a=1.1, seed=0)
+    n_te = X_te.shape[0]
+    make_query = lambda i: X_te[(t_req * i + np.arange(t_req)) % n_te]
+    runtime.reset_launches()
+    serve_loop(server, stream[: 4 * width], make_query)  # warm: builds the stack
+    warm_fused, warm_flushes = server.fused_dispatches, server.flushes
+    server.reset_stats()
+    ptrs = {st: st.data_ptrs() for st in server.stacks()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = serve_loop(server, stream, make_query)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = runtime.launches()
+    path_launches["fleet"] = launches
+    fused = warm_fused + stats["fused_dispatches"]
+    cache = stats["cache"]
+    print(f"[fleet] served {stats['completed']} requests x {t_req} points in {wall:.3f} s -> "
+          f"{n_req * t_req / wall:.0f} q/s  p50 {stats['p50_ms']:.3f} ms  p99 "
+          f"{stats['p99_ms']:.3f} ms (host clock, from submit)  hit rate "
+          f"{cache['hit_rate']:.3f} ({cache['hits']} hits, {cache['misses']} misses, "
+          f"{cache['evictions']} evictions)  swaps {stats['stack_swaps']}  flushes "
+          f"{stats['flushes']} (+{warm_flushes} warm)  launches {launches}", flush=True)
+    check(stats["completed"] == n_req, f"fleet: {stats['completed']} of {n_req} answered")
+    check(stats["stacks"] == 1 and fused == warm_flushes + stats["flushes"],
+          f"fleet: expected one fused stack, got {stats}")
+    check(launches["epilogue_fleet"] == fused and launches["epilogue"] == 0,
+          f"fleet: {launches['epilogue_fleet']} epilogue_fleet launches for {fused} fused "
+          f"flushes (and {launches['epilogue']} single-tenant epilogues)")
+    check(launches["gram"] == width * fused, f"fleet: gram launches {launches['gram']}")
+    check(all(st.data_ptrs() == p for st, p in ptrs.items()),
+          "fleet: a stacked tensor was reallocated in the steady state")
+    print(f"[fleet] where the measured {wall:.3f} s went (host clock): residency (cache "
+          f"get + load on miss + admit) {stats['residency_s']:.3f} s for {cache['misses']} "
+          f"misses; stacked predicts {stats['predict_s']:.3f} s for {stats['flushes']} "
+          f"flushes ({stats['predict_s'] / stats['flushes'] * 1e3:.3f} ms each); the rest "
+          f"(batching, query copies) {wall - stats['residency_s'] - stats['predict_s']:.3f} s",
+          flush=True)
+    print(f"[fleet] steady state: {launches['epilogue_fleet']} epilogue_fleet launches = "
+          f"{fused} fused flushes, 0 single-tenant epilogues, no stacked tensor "
+          "reallocated", flush=True)
+
+    # one stacked flush against the serial predict of each of its tenants
+    stack = server.stacks()[0]
+    tids16 = list(stack.tenants()[-width:])
+    X16 = torch.stack([torch.as_tensor(make_query(7 * s)) for s in range(width)]).to(dev)
+    mu_st, var_st = stack.predict(tids16, X16)
+    arts16 = [store.load(tid) for tid in tids16]
+    spec, worst = FUSIONS.get("kl"), 0.0
+    for s, (art_s, xq) in enumerate(zip(arts16, X16)):
+        mu_1, var_1 = est_b.predict(art_s, xq)
+        # the bound of phase b: the epilogue's rounding with P rebuilt on
+        # each side (P_mag), carried through the KL finalize
+        f_s, noise_s = art_s.factors, torch.exp(art_s.params.log_noise)
+        sq_s = (xq**2).sum(-1)
+        g_s = prior_diag(cfg_b.kernel, art_s.params, sq_s)
+        ops_s = _fused_epilogue_operands(art_s, xq, sq_s, g_s, noise_s, None)
+        P_mag = (f_s["U"].abs() + f_s["U"].abs() @ torch.cholesky_solve(
+            f_s["U"], f_s["L_M"]).abs()) / (noise_s + 1e-6)
+        E = epilogue_error_bound(*ops_s, fuse="kl", P_mag=P_mag)
+        S_s = epilogue_moments_plain(*ops_s, fuse="kl")
+        tol_mu, tol_var = finalize_tol(spec, S_s, E, ops_s[0].shape[0], ops_s[5])
+        worst = max(worst, float(((mu_st[s] - mu_1).abs() / tol_mu).max()),
+                    float(((var_st[s] - var_1).abs() / tol_var).max()))
+    print(f"[fleet] stacked flush vs serial predict, 16 tenants: worst err/tol {worst:.3e}",
+          flush=True)
+    check(worst <= 1.0, "fleet: the stacked flush disagrees with the serial predicts")
+
+    # isolation: a neighbour's NaN request or degraded mask changes no bit
+    hostile = X16.clone()
+    hostile[1] = float("nan")
+    mu_h, var_h = stack.predict(tids16, hostile)
+    healthy = torch.ones(width, len(art_b.fit_lengths), device=dev)
+    mu_a, var_a = stack.predict(tids16, X16, healthy)
+    degraded = healthy.clone()
+    degraded[1, :5] = 0.0
+    mu_d, var_d = stack.predict(tids16, X16, degraded)
+    others = [s for s in range(width) if s != 1]
+    check(torch.equal(mu_h[others], mu_st[others]) and torch.equal(var_h[others], var_st[others]),
+          "fleet: a neighbour's NaN request changed another tenant's answer")
+    check(torch.equal(mu_d[others], mu_a[others]) and torch.equal(var_d[others], var_a[others]),
+          "fleet: a neighbour's degraded mask changed another tenant's answer")
+    check(bool((mu_h[1] == 0).all()) and bool(torch.isfinite(var_h[1]).all())
+          and not torch.equal(mu_d[1], mu_a[1]),
+          "fleet: the hostile / degraded tenant's own answer is wrong")
+    print("[fleet] isolation: neighbours bitwise unchanged under a NaN request and a "
+          "degraded mask", flush=True)
+
+    # serial vs stacked q/s on the same 16 resident tenants (print only)
+    def per_s(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / reps
+
+    serial_s = per_s(lambda: [est_b.predict(a, x) for a, x in zip(arts16, X16)])
+    stacked_s = per_s(lambda: stack.predict(tids16, X16))
+    print(f"[fleet] 16 resident tenants x {t_req} points: serial {width * t_req / serial_s:.0f} "
+          f"q/s ({serial_s * 1e3:.3f} ms)  stacked {width * t_req / stacked_s:.0f} q/s "
+          f"({stacked_s * 1e3:.3f} ms)  ratio {serial_s / stacked_s:.2f}x (host clock)",
+          flush=True)
+    shutil.rmtree(store_dir, ignore_errors=True)
+
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"
     main_rows = {"gram": main_gram, "qgram_packed": main_qgram,
-                 "epilogue": next(r for r in main_epi if r["tag"].endswith(" kl"))}
+                 "epilogue": next(r for r in main_epi if r["tag"].endswith(" kl")),
+                 "epilogue_fleet": next(r for r in main_fleet if r["tag"].endswith(" kl"))}
     kernels = []
     for name, replaces in (
         ("gram", "src/repro/kernels/gram/gram.py:35"),
         ("qgram_packed", "src/repro/kernels/qgram/packed.py:87"),
         ("epilogue", "src/repro/kernels/epilogue/epilogue.py:142"),
+        ("epilogue_fleet", "src/repro/kernels/epilogue/epilogue.py:113"),
     ):
         row = main_rows[name]
         errs = [r["err"] for r in results[name]] + [

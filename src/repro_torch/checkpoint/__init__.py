@@ -1,5 +1,5 @@
 """Artifact checkpoints of the port (counterpart of ``repro.checkpoint``)."""
 from .ckpt import (  # noqa: F401
     CorruptCheckpointError, array_checksum, latest_step, load_artifact_arrays,
-    save_artifact,
+    load_artifact_meta, save_artifact,
 )

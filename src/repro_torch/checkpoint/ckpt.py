@@ -16,7 +16,7 @@ import zlib
 import numpy as np
 
 __all__ = ["CorruptCheckpointError", "array_checksum", "latest_step",
-           "save_artifact", "load_artifact_arrays"]
+           "save_artifact", "load_artifact_meta", "load_artifact_arrays"]
 
 
 class CorruptCheckpointError(ValueError):
@@ -58,17 +58,30 @@ def save_artifact(directory: str, step: int, arrays: dict, meta: dict) -> str:
     return path
 
 
+def _resolve_step(directory: str, step: int | None) -> int:
+    if step is None:
+        step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    return step
+
+
+def load_artifact_meta(directory: str, step: int | None = None) -> dict:
+    """The sidecar metadata of an artifact checkpoint (the latest when
+    ``step`` is None) WITHOUT touching the npz — a cheap screen (protocol,
+    config, format version) before paying an array load."""
+    step = _resolve_step(directory, step)
+    with open(os.path.join(directory, f"meta_{step:08d}.json")) as f:
+        return json.load(f)
+
+
 def load_artifact_arrays(directory: str, step: int | None = None):
     """(meta, {key: np.ndarray}) of an artifact checkpoint (the latest when
     ``step`` is None).  Every array recorded in ``array_checksums`` is
     verified; a mismatch or a missing array raises
     :class:`CorruptCheckpointError`."""
-    if step is None:
-        step = latest_step(directory)
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {directory}")
-    with open(os.path.join(directory, f"meta_{step:08d}.json")) as f:
-        meta = json.load(f)
+    step = _resolve_step(directory, step)
+    meta = load_artifact_meta(directory, step)
     with np.load(os.path.join(directory, f"ckpt_{step:08d}.npz")) as data:
         arrays = {k: data[k] for k in data.files}
     for k, want in (meta.get("array_checksums") or {}).items():

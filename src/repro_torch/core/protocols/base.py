@@ -276,7 +276,13 @@ def predict(art: FittedProtocol, X_star, available=None):
     NaN row would otherwise poison the batch) and answered with the prior
     predictive; for finite inputs every select is an identity."""
     X_star = torch.as_tensor(X_star, dtype=torch.float32, device=art.device)
-    avail = _availability(art, available)
+    return _predict_impl(art, X_star, _availability(art, available))
+
+
+def _predict_impl(art: FittedProtocol, X_star, avail=None):
+    """:func:`predict` after the availability mask is normalized (``avail``
+    an (m,) float32 tensor or None): the fleet serves each gathered tenant
+    row through this."""
     p = art.params
     noise = torch.exp(p.log_noise)
     finite_row = torch.isfinite(X_star).all(dim=-1)

@@ -184,8 +184,11 @@ def _uses_fused_epilogue(art, spec) -> bool:
 
 def _epilogue_projector(art, noise):
     """The woodbury quad-form projector P = (U - U M^{-1} U) / s2 per
-    expert, rebuilt on every request as the reference does (caching it
-    would change the checkpoint's keys)."""
+    expert — the query-independent operand of the fused serve.  A
+    single-artifact request rebuilds it every time, as the reference does
+    (caching it would change the checkpoint's keys); the fleet
+    (:mod:`repro_torch.core.fleet`) builds it once per admitted tenant, on
+    a stacked artifact with ``noise`` shaped to broadcast (slots, 1, 1, 1)."""
     U = art.factors["U"]
     return (U - U @ torch.cholesky_solve(U, art.factors["L_M"])) / (noise + DEFAULT_JITTER)
 

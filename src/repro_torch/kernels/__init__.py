@@ -2,6 +2,8 @@
 versions (counterpart of ``repro.kernels``).
 
 Families: ``gram`` (``csrc/gram.cu``), ``qgram_packed``
-(``csrc/qgram_packed.cu``) and ``epilogue`` (``csrc/epilogue.cu``).  The CUDA sources are compiled at first use
+(``csrc/qgram_packed.cu``), ``epilogue`` (``csrc/epilogue.cu``) and
+``epilogue_fleet`` (``csrc/epilogue_fleet.cu``; the two epilogues share
+``csrc/epilogue_body.cuh``).  The CUDA sources are compiled at first use
 (:mod:`.build`); importing this package compiles nothing.
 """

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
-by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/repro_torch_kernels/`` at the root of the checkout, then loaded
-with ``ctypes``.  Builds happen at first use, all sources at once (one
-``nvcc`` process each, started together).  A library's file name carries a
-hash of its source and flags, so an edited source rebuilds and an unchanged
-one loads the library already built.  Nothing here runs at import.
+Each ``csrc/<name>.cu`` has a plain C interface (it may include the shared
+``csrc/*.cuh`` bodies) and is compiled on its own by ``nvcc`` for Hopper
+(``sm_90a``) into a shared library under ``build/repro_torch_kernels/`` at
+the root of the checkout, then loaded with ``ctypes``.  Builds happen at
+first use, all sources at once (one ``nvcc`` process each, started
+together).  A library's file name carries a hash of its source, the
+headers and the flags, so an edited source rebuilds and an unchanged one
+loads the library already built.  Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "Built", "build_dir", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gram", "qgram_packed", "epilogue")
+SOURCES = ("gram", "qgram_packed", "epilogue", "epilogue_fleet")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -66,6 +67,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # the shared bodies they include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -42,54 +42,12 @@
 // * The quad-form reduction writes its TT x KC terms to shared memory and
 //   the owning thread sums them in k order, so the sum's order is fixed.
 // * fp32 FMA on the CUDA cores: no tensor cores, no TF32.
+// * The per-expert body (staging, both products, the moment rows) lives in
+//   epilogue_body.cuh, shared with the tenant-batched epilogue_fleet.cu.
 
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "epilogue_body.cuh"
 
 namespace {
-
-constexpr int NT = 256;          // threads per block
-constexpr int OPT = 2;           // outputs per thread per chunk
-constexpr int SLOTS = NT * OPT;  // TT * KC
-constexpr int JC = 32;           // reduction chunk (columns staged per step)
-constexpr int LD = JC + 1;       // padded row of a staged chunk
-
-enum Fuse { NONE = 0, KL = 1, POE = 2, GPOE = 3, BCM = 4, RBCM = 5 };
-
-template <int FUSE>
-__device__ __forceinline__ void moment_rows(float mu, float s2, float prior,
-                                            float w, float& r0, float& r1,
-                                            float& r2) {
-  if (FUSE == NONE) {
-    r0 = mu;
-    r1 = s2;
-    r2 = w;
-  } else if (FUSE == KL) {
-    r0 = w * mu;
-    r1 = w * (s2 + mu * mu);
-    r2 = w;
-  } else if (FUSE == RBCM) {
-    const float beta = 0.5f * (logf(prior) - logf(s2)) * w;
-    r0 = beta / s2;
-    r1 = beta * mu / s2;
-    r2 = beta;
-  } else {  // poe / gpoe / bcm share the precision rows
-    r0 = w / s2;
-    r1 = w * mu / s2;
-    r2 = w;
-  }
-}
-
-// Stage rows k0 .. k0+KC and columns j0 .. j0+jn of the (K, K) matrix M
-// into as[KC][LD]; everything outside reads as 0.
-__device__ __forceinline__ void stage_square(float* as, const float* M, int K,
-                                             int KC, int k0, int j0, int jn) {
-  for (int idx = threadIdx.x; idx < KC * JC; idx += NT) {
-    const int r = idx / JC, c = idx % JC;
-    as[r * LD + c] =
-        (k0 + r < K && c < jn) ? M[(int64_t)(k0 + r) * K + j0 + c] : 0.f;
-  }
-}
 
 template <int FUSE>
 __global__ void __launch_bounds__(NT)
@@ -103,119 +61,15 @@ epilogue_kernel(int m, int t, int K, int TT, int EG,
                 const float* __restrict__ w,       // (m,)
                 float* __restrict__ part) {        // (groups, 3, t)
   extern __shared__ float smem[];
-  const int KC = SLOTS / TT;
-  const int KB = K | 1;         // odd row strides: the owners' row reads
-  const int TS = KC + 1;        // hit distinct banks
-  float* bt = smem;             // [TT][KB]  Bt of the current expert
-  float* as = bt + TT * KB;     // [KC][LD]  chunk of Ainv or P
-  float* ls = as + KC * LD;     // [TT][LD]  chunk of G
-  float* ts = ls + TT * LD;     // [TT][TS]  quad-form terms of one chunk
-
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * TT;
   const int g = blockIdx.y;
   const int e0 = g * EG;
   const int e1 = min(m, e0 + EG);
-  const bool owner = tid < TT && t0 + tid < t;  // owns test point t0 + tid
   float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f;
-
-  for (int e = e0; e < e1; ++e) {
-    const float* Ge = G + ((int64_t)e * t + t0) * K;
-    const float* Ae = Ainv + (int64_t)e * K * K;
-    const float* Pe = P + (int64_t)e * K * K;
-
-    // phase 1: Bt[p][k] = sum_j G[p][j] Ainv[k][j]
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      float acc[OPT];
-#pragma unroll
-      for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
-      for (int j0 = 0; j0 < K; j0 += JC) {
-        const int jn = min(JC, K - j0);
-        __syncthreads();  // the previous chunk's readers are done
-        stage_square(as, Ae, K, KC, k0, j0, jn);
-        for (int idx = tid; idx < TT * JC; idx += NT) {
-          const int r = idx / JC, c = idx % JC;
-          ls[r * LD + c] =
-              (t0 + r < t && c < jn) ? Ge[(int64_t)r * K + j0 + c] : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < OPT; ++i) {
-          const int o = tid + i * NT;
-          const int p = o / KC, kk = o % KC;
-          if (k0 + kk < K && t0 + p < t) {
-            const float* lrow = ls + p * LD;
-            const float* arow = as + kk * LD;
-            for (int jj = 0; jj < jn; ++jj)
-              acc[i] = fmaf(lrow[jj], arow[jj], acc[i]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < OPT; ++i) {
-        const int o = tid + i * NT;
-        const int p = o / KC, kk = o % KC;
-        if (k0 + kk < K && t0 + p < t) bt[p * KB + k0 + kk] = acc[i];
-      }
-    }
-    __syncthreads();  // Bt complete
-
-    float mu = 0.f;
-    if (owner) {
-      const float* wa = walpha + (int64_t)e * K;
-      const float* brow = bt + tid * KB;
-      for (int k = 0; k < K; ++k) mu = fmaf(brow[k], wa[k], mu);
-    }
-
-    // phase 2: Q[p][k] = sum_j Bt[p][j] P[k][j]; quad[p] = sum_k Bt[p][k] Q[p][k]
-    float quad = 0.f;
-    for (int k0 = 0; k0 < K; k0 += KC) {
-      float acc[OPT];
-#pragma unroll
-      for (int i = 0; i < OPT; ++i) acc[i] = 0.f;
-      for (int j0 = 0; j0 < K; j0 += JC) {
-        const int jn = min(JC, K - j0);
-        __syncthreads();
-        stage_square(as, Pe, K, KC, k0, j0, jn);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < OPT; ++i) {
-          const int o = tid + i * NT;
-          const int p = o / KC, kk = o % KC;
-          if (k0 + kk < K && t0 + p < t) {
-            const float* brow = bt + p * KB + j0;
-            const float* prow = as + kk * LD;
-            for (int jj = 0; jj < jn; ++jj)
-              acc[i] = fmaf(brow[jj], prow[jj], acc[i]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < OPT; ++i) {
-        const int o = tid + i * NT;
-        const int p = o / KC, kk = o % KC;
-        if (k0 + kk < K && t0 + p < t)
-          ts[p * TS + kk] = bt[p * KB + k0 + kk] * acc[i];
-      }
-      __syncthreads();
-      if (owner) {
-        const int kn = min(KC, K - k0);
-        const float* trow = ts + tid * TS;
-        for (int kk = 0; kk < kn; ++kk) quad += trow[kk];
-      }
-    }
-
-    if (owner) {
-      const float s2 = fmaxf(gss[t0 + tid] - quad, 1e-12f);
-      float r0, r1, r2;
-      moment_rows<FUSE>(mu, s2, prior[t0 + tid], w[e], r0, r1, r2);
-      acc0 += r0;
-      acc1 += r1;
-      acc2 += r2;
-    }
-  }
-
-  if (owner) {
+  expert_moments<FUSE>(e0, e1, t, K, TT, t0, G, Ainv, P, walpha, gss, prior,
+                       w, smem, acc0, acc1, acc2);
+  if (tid < TT && t0 + tid < t) {
     float* out = part + (int64_t)g * 3 * t + t0 + tid;
     out[0] = acc0;
     out[t] = acc1;
@@ -223,26 +77,12 @@ epilogue_kernel(int m, int t, int K, int TT, int EG,
   }
 }
 
-// out[i] = sum over groups of part[g][i], in group order.
-__global__ void sum_groups_kernel(int groups, int n,
-                                  const float* __restrict__ part,
-                                  float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = part[i];
-  for (int g = 1; g < groups; ++g) s += part[(int64_t)g * n + i];
-  out[i] = s;
-}
-
 template <int FUSE>
 int launch(int m, int t, int K, int tt, int groups, const float* G,
            const float* Ainv, const float* P, const float* walpha,
            const float* gss, const float* prior, const float* w, float* out,
            float* scratch, cudaStream_t stream) {
-  const int kc = SLOTS / tt;
-  const size_t smem =
-      sizeof(float) * ((size_t)tt * (K | 1) + (size_t)kc * LD +
-                       (size_t)tt * LD + (size_t)tt * (kc + 1));
+  const size_t smem = smem_bytes(tt, K);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         epilogue_kernel<FUSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,5 +1,5 @@
-"""Operand sets for holding the ``epilogue`` kernel against its plain
-version (the CPU and card tests, ``chip_smoke.py``).
+"""Operand sets for holding the ``epilogue`` and ``epilogue_fleet`` kernels
+against their plain versions (the CPU and card tests, ``chip_smoke.py``).
 
 ``serve_cache`` builds a real Nyström serve cache: m random SE experts in
 8 dimensions (length-scale^2 8, noise 0.05), factorized by
@@ -18,7 +18,7 @@ import torch
 
 from ...core.nystrom import nystrom_factors, nystrom_serve_cache
 
-__all__ = ["epilogue_operands"]
+__all__ = ["epilogue_operands", "epilogue_fleet_operands"]
 
 
 def _se(a, b):
@@ -58,3 +58,14 @@ def epilogue_operands(m, t, K, *, seed=0, kind="serve_cache", floored=(), lost=(
     w[list(lost)] = 0.0
     return tuple(a.to(torch.float32).contiguous().to(device)
                  for a in (G, Ainv, P, walpha, gss, prior, w))
+
+
+def epilogue_fleet_operands(T, m, t, K, *, seed=0, kind="serve_cache", floored=(),
+                            lost=(), device=None):
+    """The fleet form: T operand sets of :func:`epilogue_operands` (tenant
+    n made from ``seed + n``) stacked on a leading tenant axis — G
+    (T, m, t, K), Ainv and P (T, m, K, K), walpha (T, m, K), gss and prior
+    (T, t), w (T, m)."""
+    per = [epilogue_operands(m, t, K, seed=seed + n, kind=kind, floored=floored, lost=lost)
+           for n in range(T)]
+    return tuple(torch.stack(a).contiguous().to(device) for a in zip(*per))

@@ -17,6 +17,9 @@ Inputs (m experts, t test points, K retained columns), all fp32:
   prior  (t,)       fusion prior variance k(x*, x*) + noise ((r)bcm)
   w      (m,)       availability weights (healthy fleet: all ones)
 
+The fleet form (:func:`epilogue_moments_fleet_plain`) gives every operand a
+leading tenant axis T and sums each tenant's OWN m experts into (T, 3, t).
+
 ``fuse`` selects the moment rows, which mirror ``FusionSpec.moments``:
   none          [mu_i, s2_i, w]     (one expert; finalize is the identity)
   kl            [w mu, w (s2 + mu^2), w]
@@ -27,7 +30,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["EPILOGUE_FUSES", "epilogue_moments_plain", "epilogue_error_bound"]
+__all__ = ["EPILOGUE_FUSES", "epilogue_moments_plain", "epilogue_moments_fleet_plain",
+           "epilogue_error_bound", "epilogue_fleet_error_bound"]
 
 EPILOGUE_FUSES = ("none", "kl", "poe", "gpoe", "bcm", "rbcm")
 _U = 2.0 ** -24  # fp32 unit roundoff
@@ -41,30 +45,42 @@ def _check_fuse(fuse):
 
 
 def _moment_rows(fuse, mu, s2, prior, w):
-    """(m, t) per-expert predictives -> (m, 3, t) moment rows."""
+    """([T,] m, t) per-expert predictives -> ([T,] m, 3, t) moment rows."""
     _check_fuse(fuse)
     if fuse == "none":
-        return torch.stack([mu, s2, w], dim=1)
+        return torch.stack([mu, s2, w], dim=-2)
     if fuse == "kl":
-        return torch.stack([w * mu, w * (s2 + mu * mu), w], dim=1)
+        return torch.stack([w * mu, w * (s2 + mu * mu), w], dim=-2)
     if fuse == "rbcm":
-        beta = 0.5 * (torch.log(prior)[None, :] - torch.log(s2)) * w
-        return torch.stack([beta / s2, beta * mu / s2, beta], dim=1)
-    return torch.stack([w / s2, w * mu / s2, w], dim=1)
+        beta = 0.5 * (torch.log(prior)[..., None, :] - torch.log(s2)) * w
+        return torch.stack([beta / s2, beta * mu / s2, beta], dim=-2)
+    return torch.stack([w / s2, w * mu / s2, w], dim=-2)
 
 
 def _apply(G, Ainv, P, walpha, gss):
-    Bt = G @ Ainv.mT  # B^T = G Ainv^T  (m, t, K)
+    Bt = G @ Ainv.mT  # B^T = G Ainv^T  ([T,] m, t, K)
     mu = (Bt @ walpha[..., None])[..., 0]
     quad = torch.sum(Bt * (Bt @ P.mT), dim=-1)
-    return Bt, mu, quad, torch.clamp(gss[None, :] - quad, min=1e-12)
+    return Bt, mu, quad, torch.clamp(gss[..., None, :] - quad, min=1e-12)
 
 
 def epilogue_moments_plain(G, Ainv, P, walpha, gss, prior, w, *, fuse):
-    """Summed moment rows S (3, t) of the fused serve epilogue."""
+    """Summed moment rows S (3, t) of the fused serve epilogue (with a
+    leading tenant axis on every operand: (T, 3, t), see
+    :func:`epilogue_moments_fleet_plain`)."""
     _, mu, _, s2 = _apply(G, Ainv, P, walpha, gss)
-    wc = torch.as_tensor(w, dtype=mu.dtype, device=mu.device)[:, None] * torch.ones_like(mu)
-    return torch.sum(_moment_rows(fuse, mu, s2, prior, wc), dim=0)
+    wc = torch.as_tensor(w, dtype=mu.dtype, device=mu.device)[..., None] * torch.ones_like(mu)
+    return torch.sum(_moment_rows(fuse, mu, s2, prior, wc), dim=-3)
+
+
+def epilogue_moments_fleet_plain(G, Ainv, P, walpha, gss, prior, w, *, fuse):
+    """Per-tenant summed moment rows S (T, 3, t): :func:`epilogue_moments_plain`
+    batched over a leading tenant axis (G (T, m, t, K), Ainv and P
+    (T, m, K, K), walpha (T, m, K), gss and prior (T, t), w (T, m)); each
+    tenant sums only its own experts."""
+    if G.dim() != 4:
+        raise ValueError(f"fleet epilogue: G must be (T, m, t, K), got {tuple(G.shape)}")
+    return epilogue_moments_plain(G, Ainv, P, walpha, gss, prior, w, fuse=fuse)
 
 
 def epilogue_error_bound(G, Ainv, P, walpha, gss, prior, w, *, fuse,
@@ -118,3 +134,18 @@ def epilogue_error_bound(G, Ainv, P, walpha, gss, prior, w, *, fuse,
     rows = _moment_rows(fuse, mu, s2, prior, w * torch.ones_like(mu)).abs()
     m = G.shape[0]
     return torch.stack([e.sum(0) for e in err]) + 2 * (m + 6) * _U * rows.sum(0)
+
+
+def epilogue_fleet_error_bound(G, Ainv, P, walpha, gss, prior, w, *, fuse,
+                               P_mag=None, G_err=None):
+    """(T, 3, t): :func:`epilogue_error_bound` applied to each tenant of a
+    fleet operand set (``P_mag`` and ``G_err``, when given, carry the
+    tenant axis too)."""
+    return torch.stack([
+        epilogue_error_bound(
+            G[n], Ainv[n], P[n], walpha[n], gss[n], prior[n], w[n], fuse=fuse,
+            P_mag=None if P_mag is None else P_mag[n],
+            G_err=None if G_err is None else G_err[n],
+        )
+        for n in range(G.shape[0])
+    ])

@@ -268,7 +268,9 @@ def test_cpu_path_launches_no_kernel():
     runtime.reset_launches()
     _port_run("pallas", 1, **BROADCAST)
     _port_run("pallas", 1, protocol="poe", fusion="rbcm")
-    assert runtime.launches() == {"epilogue": 0, "gram": 0, "qgram_packed": 0}
+    counts = runtime.launches()  # every registered family, epilogue_fleet too
+    assert {"epilogue", "gram", "qgram_packed"} <= set(counts)
+    assert set(counts.values()) == {0}, counts
 
 
 def test_unported_broadcast_paths_raise_naming_their_slice():

@@ -10,7 +10,8 @@ the output's scale — except the epilogue, whose variance cancels
 (s2 = gss - quad): it is held within ``epilogue_error_bound``, the fp32
 rounding of its sums against the sum of their absolute terms, carried
 through each fusion's rows (tests/test_torch_epilogue.py checks that bound
-against a float64 evaluation).  The broadcast and poe paths serve a
+against a float64 evaluation); the fleet epilogue within the same bound
+applied per tenant.  The broadcast and poe paths serve a
 checkpoint on the card and on the CPU: 1e-4 of the output's scale, the
 fused serve's cancellation at this small, well-conditioned size.
 """
@@ -23,10 +24,14 @@ from repro_torch.core import DGPConfig, DistributedGP  # noqa: E402
 from repro_torch.core import torch_scheme as TS  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.gram.ops import gram, gram_cuda, gram_plain  # noqa: E402
-from repro_torch.kernels.epilogue.cases import epilogue_operands  # noqa: E402
-from repro_torch.kernels.epilogue.ops import epilogue_cuda  # noqa: E402
+from repro_torch.core.fleet import FleetStack, scale_targets  # noqa: E402
+from repro_torch.kernels.epilogue.cases import (  # noqa: E402
+    epilogue_fleet_operands, epilogue_operands,
+)
+from repro_torch.kernels.epilogue.ops import epilogue_cuda, epilogue_fleet_cuda  # noqa: E402
 from repro_torch.kernels.epilogue.ref import (  # noqa: E402
-    EPILOGUE_FUSES, epilogue_error_bound, epilogue_moments_plain,
+    EPILOGUE_FUSES, epilogue_error_bound, epilogue_fleet_error_bound,
+    epilogue_moments_fleet_plain, epilogue_moments_plain,
 )
 from repro_torch.kernels.qgram.ops import (  # noqa: E402
     qgram_packed_cuda, qgram_packed_plain,
@@ -179,3 +184,61 @@ def test_broadcast_and_poe_on_card(cuda, tmp_path, protocol, fusion):
         want = want.numpy()
         np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
                                    atol=1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("fuse", EPILOGUE_FUSES)
+@pytest.mark.parametrize("T,m,t,K,kind,floored,lost", [
+    (16, 40, 16, 25, "serve_cache", (), ()),         # a fleet flush at Fig. 6
+    (5, 5, 37, 19, "serve_cache", (0, 5, 36), (1,)),  # ragged, floored s2, a lost expert
+    (8, 40, 128, 25, "serve_cache", (), ()),         # serve-sized requests: expert groups
+    (3, 3, 130, 300, "generic", (2,), ()),           # large K: chunked operands
+])
+def test_epilogue_fleet_kernel(cuda, fuse, T, m, t, K, kind, floored, lost):
+    ops = epilogue_fleet_operands(T, m, t, K, seed=T + m + t + K, kind=kind,
+                                  floored=floored, lost=lost, device=cuda)
+    before = runtime.launches()
+    got = epilogue_fleet_cuda(*ops, fuse=fuse)
+    again = epilogue_fleet_cuda(*ops, fuse=fuse)
+    torch.cuda.synchronize()
+    after = runtime.launches()
+    assert after["epilogue_fleet"] == before["epilogue_fleet"] + 2
+    assert after["epilogue"] == before["epilogue"]
+    assert torch.equal(got, again)  # no atomics: the same bits every run
+    want = epilogue_moments_fleet_plain(*ops, fuse=fuse)
+    bound = epilogue_fleet_error_bound(*ops, fuse=fuse)
+    assert got.shape == (T, 3, t) and bool(torch.isfinite(got).all())
+    excess = float(((got - want).abs() - bound).max())
+    assert excess <= 0, excess
+    # tenant 0 poisoned: every other tenant's rows keep their bits
+    G = ops[0].clone()
+    G[0] = float("nan")
+    poisoned = epilogue_fleet_cuda(G, *ops[1:], fuse=fuse)
+    assert torch.equal(poisoned[1:], got[1:])
+
+
+def test_fleet_predict_on_card_is_one_fleet_launch(cuda):
+    parts, Xq = _fig6_like()
+    est = DistributedGP(DGPConfig(protocol="broadcast", fusion="kl", gram_backend="pallas",
+                                  steps=10))
+    art = est.fit(parts=parts)
+    tenants = {i: scale_targets(art, 0.5 + 0.25 * i) for i in range(6)}
+    stack = FleetStack(dict(list(tenants.items())[:4]), slots=4)
+    ptrs = stack.data_ptrs()
+    tids = [3, 0, 1, 3]
+    X4 = np.stack([Xq[:16]] * 4)
+    runtime.reset_launches()
+    mu, var = stack.predict(tids, X4)
+    torch.cuda.synchronize()
+    launches = runtime.launches()
+    assert launches["epilogue_fleet"] == 1 and launches["epilogue"] == 0
+    assert launches["gram"] == len(tids)  # one query product per gathered tenant
+    for s, tid in enumerate(tids):
+        mu_1, var_1 = est.predict(tenants[tid], Xq[:16])
+        for got, want in ((mu[s], mu_1), (var[s], var_1)):
+            want = want.cpu().numpy()
+            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=2e-4,
+                                       atol=2e-4 * max(1.0, float(np.abs(want).max())))
+    stack.admit(4, tenants[4])  # evicts tenant 2, the least recently used
+    stack.admit(5, tenants[5])  # evicts tenant 0
+    stack.predict([4, 5, 1, 3], X4)
+    assert stack.data_ptrs() == ptrs and stack.swaps == 2

@@ -11,7 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import DGPConfig, DistributedGP  # noqa: E402
+from repro_torch.core.fleet import ArtifactStore  # noqa: E402
 from repro_torch.core.protocols import base  # noqa: E402
+from repro_torch.launch.fleet import FleetServer, main as fleet_main  # noqa: E402
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -28,6 +30,7 @@ def _imports(path):
 def test_no_jax_or_repro_import_in_the_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
+    assert PKG / "launch" / "fleet.py" in files and PKG / "core" / "fleet.py" in files
     bad = [
         f"{f.relative_to(PKG)}: {name}"
         for f in files for name in _imports(f)
@@ -47,6 +50,8 @@ def test_cpu_fit_leaves_no_jax_or_repro_module_loaded():
 import sys
 import numpy as np
 from repro_torch.core import DGPConfig, DistributedGP
+from repro_torch.core.fleet import FleetStack
+import repro_torch.launch.fleet
 rng = np.random.default_rng(0)
 X = rng.normal(size=(48, 4)).astype(np.float32)
 y = X[:, 0].copy()
@@ -56,6 +61,8 @@ for protocol in ("center", "broadcast", "poe"):
     art = est.fit(X, y, m=4)
     mu, var = est.predict(art, X[:5])
     assert mu.shape == (5,) and bool((var > 0).all())
+    mu, var = FleetStack({0: art, 1: art}).predict([1, 0], np.stack([X[:5], X[5:10]]))
+    assert mu.shape == (2, 5) and bool((var > 0).all())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("BAD", bad)
@@ -80,3 +87,12 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     assert est.device.type == "cpu"
     with pytest.raises(RuntimeError, match='device="cpu"'):
         base.load_artifact(str(tmp_path))
+    store = ArtifactStore(str(tmp_path))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        store.load("0000")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        FleetServer(store)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fleet_main(["--tenants", "2", "--requests", "2"])
+    cpu_store = ArtifactStore(str(tmp_path), device="cpu")
+    assert FleetServer(cpu_store, device="cpu").device.type == "cpu"
