@@ -9,7 +9,7 @@ Phases, in order; any failure exits nonzero (nothing is caught and turned
 into a pass):
 
 1. torch/CUDA versions and the card's name and power limit (nvidia-smi).
-2. Build the four Hopper kernels from ``src/repro_torch/kernels/csrc``
+2. Build the eight Hopper kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, in parallel): build time, registers and shared memory
    per kernel.
 3. Each kernel (and the gram backward) against its plain PyTorch version on
@@ -19,10 +19,21 @@ into a pass):
    the epilogue all six fusion forms, ragged t and K, a large K, an expert
    of weight 0 and variances at their 1e-12 floor; for the fleet epilogue
    all six fusion forms at a fleet flush, a ragged case and serve-sized
-   requests, each tenant also against the single-tenant kernel) — with the
-   max abs / relative error against the stated tolerance, and the device
-   time of the kernel, the plain version and ``torch.matmul`` where it
-   applies.
+   requests, each tenant also against the single-tenant kernel; for
+   ``quant_encode`` / ``quant_decode`` bitwise at the kernels bench shape
+   (n = 1024, d = 128, Algorithm-1 rates at 4 d bits, max 8), a 4096-edge
+   row, a ragged shape with NaN, +-inf, on-edge symbols and rate-0 dims,
+   and bits = 0, decode also at -1 and >= C; ``qgram`` within TOL at
+   (1024, 128, 1024) and a ragged batched shape with -1 rows;
+   ``decode_attn`` within 1e-5 max|V| at the bench shape B = 8, S = 8192,
+   KV = 4, G = 8, hd = 128 with bf16 K/V, a gemma2-2b local layer (G = 2,
+   hd = 256, window 4096) on a permuted ring cache, a ragged S and a row
+   with no valid key; two launches give the same bits) — with the max abs
+   / relative error against the stated tolerance, and the device time of
+   the kernel, the plain version and one PyTorch call that computes the
+   same function where there is one (``torch.matmul``,
+   ``torch.searchsorted``, ``torch.gather``,
+   ``F.scaled_dot_product_attention``).
 4. The paths at the paper's Fig. 6 SARCOS setting (N = 1000, d = 21,
    m = 40, SE kernel, R = 24 bits/sample, 150 Adam steps, 4449 test points
    in 35 batches of 128), each on the card with ``gram_backend="pallas"``
@@ -47,6 +58,18 @@ into a pass):
       the epilogue's rounding bound, and bitwise tenant isolation under a
       neighbour's NaN request and degraded mask; the serial-vs-stacked q/s
       on 16 resident tenants is printed.
+   e. the Fig. 6 wire through the quantizer kernels, on a.'s artifact,
+      launch counts read from zero: each of the 40 machines' symbols
+      X_i T_i^T encoded against ``build_scaled_tables(sigma_i, rates_i)``
+      (== the plain version bitwise; == the wire's unpacked codes except
+      within 2 ulp of an edge, counted) and decoded with the wire's
+      4096-entry tables (== plain, bitwise); one ``qgram_batched`` launch
+      over the 39 non-center machines (rows padded to 32 with -1, the
+      center's ``proj``) against ``qgram_packed_batched`` on the same words
+      and decode-then-multiply, within TOL.  Counts: 40 ``quant_encode``,
+      40 ``quant_decode``, 1 ``qgram``, 1 ``qgram_packed``.
+   f. ``runtime.shape_sweep`` over all eight families at the shapes above,
+      counts read from zero; a ``nan`` in a ``"cuda"`` row fails the run.
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -90,11 +113,14 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    import torch.nn.functional as F
+
+    from repro_torch.comm.accounting import row_bits
     from repro_torch.core import DGPConfig, DistributedGP
     from repro_torch.core import torch_scheme as TS
     from repro_torch.core.fleet import artifact_nbytes
     from repro_torch.core.gp import kernel_from_inner, prior_diag
-    from repro_torch.core.protocols.base import split_machines
+    from repro_torch.core.protocols.base import pad_parts, split_machines
     from repro_torch.core.protocols.broadcast import (
         _epilogue_projector, _expert_cross_gram, _fused_epilogue_operands,
     )
@@ -102,7 +128,18 @@ def main():
     from repro_torch.data.synthetic import regression_dataset
     from repro_torch.kernels import build, runtime
     from repro_torch.kernels.gram.ops import gram, gram_cuda, gram_plain
-    from repro_torch.kernels.qgram.ops import qgram_packed_cuda, qgram_packed_plain
+    from repro_torch.kernels.qgram.ops import (
+        qgram_batched, qgram_cuda, qgram_packed_batched, qgram_packed_cuda,
+        qgram_packed_plain, qgram_plain,
+    )
+    from repro_torch.kernels.qgram.ref import decode_gathered
+    from repro_torch.kernels.quant.cases import qgram_operands, quant_operands
+    from repro_torch.kernels.quant.ops import (
+        build_scaled_tables, decode, decode_cuda, decode_plain, encode, encode_cuda,
+        encode_plain,
+    )
+    from repro_torch.kernels.decode_attn.cases import decode_attn_operands
+    from repro_torch.kernels.decode_attn.ops import decode_attn_cuda, decode_attn_plain
     from repro_torch.kernels.epilogue.cases import epilogue_fleet_operands, epilogue_operands
     from repro_torch.kernels.epilogue.ops import (
         epilogue_cuda, epilogue_fleet_cuda, epilogue_moments, plan, plan_fleet,
@@ -136,7 +173,8 @@ def main():
 
     # ---- 3. kernels against their plain versions ---------------------------
     gen = torch.Generator().manual_seed(0)
-    results = {"gram": [], "qgram_packed": [], "epilogue": [], "epilogue_fleet": []}
+    results = {name: [] for name in ("gram", "qgram_packed", "epilogue", "epilogue_fleet",
+                                     "quant_encode", "quant_decode", "qgram", "decode_attn")}
 
     def device_ms(fn, reps):
         """Device time per call: ``reps`` calls captured in a CUDA graph,
@@ -240,8 +278,6 @@ def main():
         got = qgram_packed_cuda(words, rates, cents, proj, total_bits=R, mask=mask)
         want = qgram_packed_plain(words, rates, cents, proj, total_bits=R, mask=mask)
         codes = TS.unpack_codes(words, rates, total_bits=R)
-        from repro_torch.kernels.qgram.ref import decode_gathered
-
         xhat = decode_gathered(codes, cents) * mask[..., None]
         scale = float((xhat.abs() @ proj.abs().transpose(-1, -2)).max())
         row = {"tag": tag, "err": compare("qgram_packed", tag, got, want, scale)}
@@ -368,6 +404,187 @@ def main():
     fleet_case("ragged + w zeros + floors: T=5 m=5 t=37 K=19", 5, 5, 37, 19, EPILOGUE_FUSES,
                50, floored=(0, 36), lost=(1,))
     fleet_case("serve-sized: T=8 m=40 t=128 K=25", 8, 40, 128, 25, ("kl", "rbcm"), 50)
+
+    # the quantizer kernels: bitwise against their plain versions
+    def encode_bound(x, edges):
+        """x, the codes and the finite edges once; a binary search's
+        comparisons per symbol over its row's finite edges."""
+        n, d = x.shape
+        live = torch.isfinite(edges).sum(1).double()
+        return bound(4 * (2 * n * d + int(live.sum())),
+                     n * float(torch.ceil(torch.log2(live + 1)).sum()))
+
+    def looked_up(codes, C):
+        """Distinct table entries that in-range codes look up, over (..., n, d)."""
+        d = codes.shape[-1]
+        inside = (codes >= 0) & (codes < C)
+        lead = torch.arange(codes.numel() // (codes.shape[-2] * d), device=codes.device)
+        lead = lead.reshape(codes.shape[:-2] + (1, 1)) if codes.dim() > 2 else 0
+        j = torch.arange(d, device=codes.device)
+        key = ((lead * d + j) * C + codes.long())[inside]
+        return int(torch.unique(key).numel()), inside
+
+    def time_quant(tag, x, edges, codes, cents, reps):
+        enc = {"ms": device_ms(lambda: encode_cuda(x, edges), reps),
+               "plain_ms": device_ms(lambda: encode_plain(x, edges), reps),
+               "library_ms": device_ms(lambda: torch.searchsorted(edges, x.T.contiguous()),
+                                       reps)}
+        enc["bound_ms"], enc["bound_by"] = encode_bound(x, edges)
+        same = torch.equal(torch.searchsorted(edges, x.T.contiguous()).T.int(), codes)
+        codes64 = codes.long()
+        dec = {"ms": device_ms(lambda: decode_cuda(codes, cents), reps),
+               "plain_ms": device_ms(lambda: decode_plain(codes, cents), reps),
+               "library_ms": device_ms(lambda: torch.gather(cents, 1, codes64.T), reps)}
+        n, d = codes.shape
+        dec["bound_ms"], dec["bound_by"] = bound(
+            4 * (2 * n * d + looked_up(codes, cents.shape[1])[0]), 0)
+        for name, r, lib in (("quant_encode", enc, "torch.searchsorted"),
+                             ("quant_decode", dec, "torch.gather")):
+            print(f"[time]   {name:13s} {tag:44s} kernel {r['ms']:.4f} ms  plain "
+                  f"{r['plain_ms']:.4f} ms  {lib} {r['library_ms']:.4f} ms  bound "
+                  f"{r['bound_ms']:.7f} ms ({r['bound_by']})", flush=True)
+        print(f"[time]   quant_encode  {tag:44s} torch.searchsorted gives the same codes: "
+              f"{same}", flush=True)
+        return enc, dec
+
+    def quant_case(tag, n, d, bits, max_bits, reps=0, **kw):
+        x, edges, cents, _ = quant_operands(n, d, bits, max_bits=max_bits, seed=n + d,
+                                            device=dev, **kw)
+        codes, again = encode_cuda(x, edges), encode_cuda(x, edges)
+        want = encode_plain(x, edges)
+        probe = codes.clone()  # and the -1 sentinel and a code past the table
+        probe[0] = -1
+        probe[-1] = cents.shape[1] + 3
+        xhat, xhat2 = decode_cuda(probe, cents), decode_cuda(probe, cents)
+        want_x = decode_plain(probe, cents)
+        torch.cuda.synchronize()
+        e_err = float((codes.long() - want.long()).abs().max())
+        d_err = float((xhat - want_x).abs().max())
+        print(f"[kernel] quant_encode  {tag:44s} bitwise {torch.equal(codes, want)}  "
+              f"| quant_decode bitwise {torch.equal(xhat, want_x)} (incl. -1 and >= C)",
+              flush=True)
+        check(torch.equal(codes, want), f"quant_encode {tag}: codes differ from the plain version")
+        check(torch.equal(codes, again), f"quant_encode {tag}: two launches differ")
+        check(torch.equal(xhat, want_x) and torch.equal(xhat, xhat2),
+              f"quant_decode {tag}: differs from the plain version or between launches")
+        check(not bool(xhat[0].any()) and not bool(xhat[-1].any()),
+              f"quant_decode {tag}: a code outside the table did not decode to 0")
+        rows = {"tag": tag, "err": e_err}, {"tag": tag, "err": d_err}
+        if reps:
+            enc, dec = time_quant(tag, x, edges, codes, cents, reps)
+            rows[0].update(enc)
+            rows[1].update(dec)
+        results["quant_encode"].append(rows[0])
+        results["quant_decode"].append(rows[1])
+
+    quant_case("bench: n=1024 d=128, 4d bits, max 8", 1024, 128, 512, 8, reps=200)
+    quant_case("wide: n=25 d=21, R=48, max 12, a 4096-edge row", 25, 21, 48, 12, reps=200,
+               dominant=True)
+    quant_case("ragged n=37 d=13: NaN/+-inf/on-edge, rate-0", 37, 13, 30, 12,
+               zero_dims=(2, 7), specials=True)
+    quant_case("bits=0: n=9 d=5, E=128 of +inf", 9, 5, 0, 8, specials=True)
+
+    # the unpacked qgram: within TOL x max(|X̂| |y|^T), as gram
+    def qgram_bound(codes, cents, y):
+        """The codes, the looked-up centroids, y and the output once; the
+        FMAs of the rows that hold a code in the table."""
+        m, n, d = codes.shape
+        looked, inside = looked_up(codes, cents.shape[-1])
+        rows = int(inside.any(-1).sum())
+        return bound(4 * (codes.numel() + looked + y.numel() + m * n * y.shape[-2]),
+                     2 * rows * y.shape[-2] * d)
+
+    def time_qgram(tag, codes, cents, y, xhat, reps):
+        row = {"ms": device_ms(lambda: qgram_cuda(codes, cents, y), reps),
+               "plain_ms": device_ms(lambda: qgram_plain(codes, cents, y), reps),
+               "matmul_ms": device_ms(lambda: torch.matmul(xhat, y.transpose(-1, -2)), reps),
+               "library_ms": None}  # no single PyTorch call decodes and multiplies
+        row["bound_ms"], row["bound_by"] = qgram_bound(codes, cents, y)
+        print(f"[time]   qgram         {tag:44s} kernel {row['ms']:.4f} ms  plain "
+              f"{row['plain_ms']:.4f} ms  torch.matmul(x̂, y) {row['matmul_ms']:.4f} ms  "
+              f"bound {row['bound_ms']:.7f} ms ({row['bound_by']})  library: none (no single "
+              "PyTorch call decodes codes and multiplies)", flush=True)
+        return row
+
+    def unpacked_case(tag, m, n, d, p, bits, max_bits, pad_rows, shared_y, reps=0):
+        codes, cents, y = qgram_operands(m, n, d, p, bits, max_bits=max_bits, seed=m + n + p,
+                                         pad_rows=pad_rows, shared_y=shared_y, device=dev)
+        got, again = qgram_cuda(codes, cents, y), qgram_cuda(codes, cents, y)
+        want = qgram_plain(codes, cents, y)
+        xhat = decode_gathered(codes, cents)
+        scale = float((xhat.abs() @ y.abs().transpose(-1, -2)).max())
+        row = {"tag": tag, "err": compare("qgram", tag, got, want, scale)}
+        check(torch.equal(got, again), f"qgram {tag}: two launches differ")
+        check(not bool(got[:, n:].any()), f"qgram {tag}: a -1 row did not give a zero row")
+        if reps:
+            row.update(time_qgram(tag, codes, cents, y, xhat, reps))
+        results["qgram"].append(row)
+
+    unpacked_case("bench: n=1024 d=128 p=1024, 4d bits", 1, 1024, 128, 1024, 512, 8, 0,
+                  True, reps=50)
+    unpacked_case("ragged batched: 3 x (37+5 rows of -1), d=13 p=70", 3, 37, 13, 70, 30, 12,
+                  5, False)
+
+    # decode attention: within 1e-5 x max|V| of the plain version
+    def attn_case(tag, B, S, KV, G, hd, pos, reps=0, window=None, q_dtype=torch.float32,
+                  kv_dtype=torch.bfloat16, ring=False, empty=()):
+        q, K, V, kpos = decode_attn_operands(B, S, KV, G, hd, pos=pos, q_dtype=q_dtype,
+                                             kv_dtype=kv_dtype, ring=ring, empty_rows=empty,
+                                             seed=S + hd, device=dev)
+        got = decode_attn_cuda(q, K, V, kpos, pos, window=window)
+        again = decode_attn_cuda(q, K, V, kpos, torch.tensor(pos, dtype=torch.int32, device=dev),
+                                 window=window)
+        want = decode_attn_plain(q, K, V, kpos, pos, window=window)
+        torch.cuda.synchronize()
+        vmax = float(V.float().abs().max())
+        err, tol = float((got - want).abs().max()), 1e-5 * vmax
+        print(f"[kernel] decode_attn   {tag:44s} max_abs_err {err:.3e} tol {tol:.3e} "
+              f"(1e-5 max|V|)", flush=True)
+        check(bool(torch.isfinite(got).all()), f"decode_attn {tag}: non-finite output")
+        check(err <= tol, f"decode_attn {tag}: error {err:.3e} above {tol:.3e}")
+        check(torch.equal(got, again), f"decode_attn {tag}: two launches differ")
+        for b in empty:
+            mean = V[b].float().mean(0)[:, None, :]
+            check(float((got[b] - mean).abs().max()) <= tol,
+                  f"decode_attn {tag}: a row with no valid key is not the mean of V")
+        row = {"tag": tag, "err": err}
+        if reps:
+            valid = (kpos >= 0) & (kpos <= pos)
+            if window is not None:
+                valid &= kpos > pos - window
+            qh = q.reshape(B, KV * G, 1, hd).to(K.dtype)
+            kh, vh = K.permute(0, 2, 1, 3), V.permute(0, 2, 1, 3)  # views
+            mask = valid[:, None, None, :]
+            row["ms"] = device_ms(lambda: decode_attn_cuda(q, K, V, kpos, pos, window=window),
+                                  reps)
+            row["plain_ms"] = device_ms(
+                lambda: decode_attn_plain(q, K, V, kpos, pos, window=window), reps)
+            row["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, scale=1.0, enable_gqa=True), reps)
+            # the valid slots' K and V rows once (a row with none valid: V only,
+            # for its mean), q, kpos and the output once; 4 flops a slot and dim
+            n_valid = valid.sum(1)
+            k_rows = int(n_valid.sum())
+            v_rows = int(torch.where(n_valid > 0, n_valid, torch.full_like(n_valid, S)).sum())
+            esz = K.element_size()
+            nbytes = (q.numel() * q.element_size() + (k_rows + v_rows) * KV * hd * esz
+                      + 4 * B * S + 4 * B * KV * G * hd)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * k_rows * KV * G * hd)
+            print(f"[time]   decode_attn   {tag:44s} kernel {row['ms']:.4f} ms  plain "
+                  f"{row['plain_ms']:.4f} ms  F.scaled_dot_product_attention (q cast to "
+                  f"{str(K.dtype)[6:]}) {row['library_ms']:.4f} ms  bound {row['bound_ms']:.7f} "
+                  f"ms ({row['bound_by']})  {k_rows} valid slots", flush=True)
+        results["decode_attn"].append(row)
+        return row
+
+    main_attn = attn_case("bench: B=8 S=8192 KV=4 G=8 hd=128, K/V bf16", 8, 8192, 4, 8, 128,
+                          8191, reps=20)
+    attn_case("gemma2-2b local: KV=4 G=2 hd=256 w=4096 ring", 8, 8192, 4, 2, 256, 10000,
+              reps=20, window=4096, ring=True)
+    attn_case("ragged S=1000, f32 K/V, G=12 (two head chunks)", 2, 1000, 2, 12, 64, 900,
+              kv_dtype=torch.float32)
+    attn_case("no valid key in row 1, S=333, hd=40, bf16 q", 3, 333, 2, 3, 40, 300,
+              q_dtype=torch.bfloat16, empty=(1,), window=100)
 
     # ---- 4. the paths: Fig. 6 SARCOS, fit -> save -> load -> serve --------
     X_tr, y_tr, X_te, y_te = regression_dataset("sarcos", seed=0)
@@ -686,17 +903,158 @@ def main():
           flush=True)
     shutil.rmtree(store_dir, ignore_errors=True)
 
+    # e. the Fig. 6 wire through the quantizer kernels, on a.'s center artifact
+    art_c = center["art"]
+    wire = art_c.wire
+    m_w, n_pad, d_w = wire.decoded.shape
+    total = row_bits(cfg_c.bits_per_sample, d_w, cfg_c.max_bits)
+    shards = pad_parts(parts, dev)
+    lengths = shards.lengths
+    # the symbols x_i = X_i T_i^T as the fit formed them (torch_scheme.encode)
+    Xp = shards.X.float() @ wire.T.transpose(-1, -2)
+    sent = TS.unpack_codes(wire.codes, wire.rates, total_bits=total).to(torch.int32)
+    tables = [build_scaled_tables(wire.sigma[i], wire.rates[i], device=dev) for i in range(m_w)]
+    xs = [Xp[i, : lengths[i]].contiguous() for i in range(m_w)]
+    order = list(art_c.block_order)
+    idx = order[1:]  # the machines whose rows reach the center over the wire
+    n_rows = 32  # 25 rows a machine, padded to 32 with -1 rows
+    Xc = art_c.data["Xc"]
+    proj = torch.einsum("pd,mde->mpe", Xc, wire.T_inv[idx]).contiguous()  # _pallas_ip_rows
+    cents_w = wire.scaled_cents[idx].contiguous()
+    codes_q = torch.full((len(idx), n_rows, d_w), -1, dtype=torch.int32, device=dev)
+    for k, i in enumerate(idx):
+        codes_q[k, : lengths[i]] = sent[i, : lengths[i]]
+    mask_w = (torch.arange(n_pad, device=dev)[None, :]
+              < torch.tensor([lengths[i] for i in idx], device=dev)[:, None]).float()
+    runtime.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc = [encode(xs[i], tables[i][0]) for i in range(m_w)]
+    dec = [decode(enc[i], wire.scaled_cents[i]) for i in range(m_w)]
+    g_unpacked = qgram_batched(codes_q, cents_w, proj)
+    g_packed = qgram_packed_batched(wire.codes[idx], wire.rates[idx], cents_w, proj,
+                                    total_bits=total, mask=mask_w)
+    torch.cuda.synchronize()
+    wire_s = time.perf_counter() - t0
+    launches = runtime.launches()
+    path_launches["wire"] = launches
+    print(f"[wire] {m_w} machines x {n_pad} rows, d={d_w}, R={cfg_c.bits_per_sample}, "
+          f"largest rate {int(wire.rates.max())}, so edge tables up to "
+          f"{max(t[0].shape[1] for t in tables)} entries and decode tables of "
+          f"{wire.scaled_cents.shape[-1]}: {m_w} encodes, "
+          f"{m_w} decodes, 1 qgram over {len(idx)} machines, 1 qgram_packed in "
+          f"{wire_s * 1e3:.3f} ms (host clock)  launches {launches}", flush=True)
+    want_counts = {"quant_encode": m_w, "quant_decode": m_w, "qgram": 1, "qgram_packed": 1}
+    check(all(launches[k] == want_counts.get(k, 0) for k in launches),
+          f"wire: launches {launches}, expected {want_counts} and no other kernel")
+    mismatched = near_edge = 0
+    for i in range(m_w):
+        edges_i, L = tables[i][0], lengths[i]
+        check(torch.equal(enc[i], encode_plain(xs[i], edges_i)),
+              f"wire: machine {i}'s codes differ from the plain encode")
+        check(torch.equal(dec[i], decode_plain(enc[i], wire.scaled_cents[i])),
+              f"wire: machine {i}'s decode differs from the plain decode")
+        # symbols within 2 ulp of a finite edge: there the fit's f32-scaled
+        # edges and build_scaled_tables' f64-scaled ones may disagree
+        fin = torch.where(torch.isfinite(edges_i), edges_i, torch.zeros_like(edges_i))
+        gap = (xs[i][:, :, None] - fin[None]).abs()
+        ulp = torch.nextafter(fin.abs(), torch.full_like(fin, float("inf"))) - fin.abs()
+        near = ((gap <= 2 * ulp[None]) & torch.isfinite(edges_i)[None]).any(-1)
+        near_edge += int(near.sum())
+        differ = enc[i] != sent[i, :L]
+        mismatched += int(differ.sum())
+        check(not bool((differ & ~near).any()),
+              f"wire: machine {i}: a code differs from the wire's away from any edge")
+    print(f"[wire] kernel codes == plain (bitwise, 40 machines); == the wire's unpacked codes "
+          f"but {mismatched} (symbols within 2 ulp of an edge: {near_edge}); decode == plain "
+          "(bitwise)", flush=True)
+    xhat_w = decode_gathered(codes_q, cents_w)
+    scale = float((xhat_w.abs() @ proj.abs().transpose(-1, -2)).max())
+    err_pk = compare("qgram", "wire: unpacked vs qgram_packed, 39 machines",
+                     g_unpacked[:, :n_pad], g_packed, scale)
+    two_step = torch.stack([decode_plain(codes_q[k], cents_w[k]) for k in range(len(idx))])
+    err_ds = compare("qgram", "wire: vs decode-then-multiply", g_unpacked,
+                     two_step @ proj.transpose(-1, -2), scale)
+    check(not bool(g_unpacked[:, n_pad:].any()), "wire: a -1 row did not give a zero row")
+    # the main rows of the quantizer kernels: the wire's shapes, its largest table
+    big = max(range(m_w), key=lambda i: tables[i][0].shape[1])
+    tag = f"wire: 25 x 21 vs {tables[big][0].shape[1]}-entry table"
+    main_enc, main_dec = time_quant(tag, xs[big], tables[big][0], enc[big],
+                                    wire.scaled_cents[big], 200)
+    main_enc.update(tag=tag, err=0.0)
+    main_dec.update(tag=tag, err=0.0)
+    results["quant_encode"].append(main_enc)
+    results["quant_decode"].append(main_dec)
+    main_unpacked = time_qgram("wire: 39 machines x 32 rows, p=25", codes_q, cents_w, proj,
+                               xhat_w, 200)
+    main_unpacked.update(tag="wire", err=max(err_pk, err_ds))
+    results["qgram"].append(main_unpacked)
+
+    # f. the kernel runtime's shape sweep over all eight families, from zero
+    def prebuilt(*args):
+        return lambda: args
+
+    gx, gy = torch.randn(128, 21, device=dev), torch.randn(25, 21, device=dev)
+    bx, by = torch.randn(4449, 21, device=dev), torch.randn(40000, 21, device=dev)
+    pk_main = packed_inputs(39, 25, 21, 25, 24)
+    pk_big = packed_inputs(40, 1000, 21, 4449, 24)
+    epi = epilogue_operands(40, 128, 25, seed=1, device=dev)
+    flt = epilogue_fleet_operands(16, 40, 16, 25, seed=1, device=dev)
+    qb = quant_operands(1024, 128, 512, max_bits=8, seed=1, device=dev)
+    qb_codes = encode_cuda(qb[0], qb[1])
+    ub = qgram_operands(1, 1024, 128, 1024, 512, max_bits=8, seed=1, device=dev)
+    at = decode_attn_operands(8, 8192, 4, 8, 128, pos=8191, seed=1, device=dev)
+    ag = decode_attn_operands(8, 8192, 4, 2, 256, pos=10000, ring=True, seed=2, device=dev)
+    sweeps = {
+        "gram": [("128x25 d=21", prebuilt(gx, gy), None),
+                 ("4449x40000 d=21", prebuilt(bx, by), None)],
+        "qgram_packed": [("39x25x25 R=24", prebuilt(*pk_main[:4]),
+                          {"total_bits": 24, "mask": pk_main[4]}),
+                         ("40x1000x4449 R=24", prebuilt(*pk_big[:4]),
+                          {"total_bits": 24, "mask": pk_big[4]})],
+        "epilogue": [("m40 t128 K25 kl", prebuilt(*epi), {"fuse": "kl"})],
+        "epilogue_fleet": [("T16 m40 t16 K25 kl", prebuilt(*flt), {"fuse": "kl"})],
+        "quant_encode": [("wire 25x21 E" + str(tables[big][0].shape[1]),
+                          prebuilt(xs[big], tables[big][0]), None),
+                         ("1024x128 E256", prebuilt(qb[0], qb[1]), None)],
+        "quant_decode": [("wire 25x21", prebuilt(enc[big], wire.scaled_cents[big]), None),
+                         ("1024x128", prebuilt(qb_codes, qb[2]), None)],
+        "qgram": [("wire 39x32x25", prebuilt(codes_q, cents_w, proj), None),
+                  ("1024x128x1024", prebuilt(*ub), None)],
+        "decode_attn": [("B8 S8192 KV4 G8 hd128 bf16", prebuilt(*at, 8191), None),
+                        ("gemma2 local w4096", prebuilt(*ag, 10000), {"window": 4096})],
+    }
+    runtime.reset_launches()
+    sweep_rows = []
+    for name, cases in sweeps.items():
+        for label, backend, us in runtime.shape_sweep(name, cases, reps=5):
+            sweep_rows.append((name, label, backend, us))
+            print(f"[sweep] {name:14s} {label:28s} {backend:5s} {us:12.3f} us/call", flush=True)
+    torch.cuda.synchronize()
+    path_launches["sweep"] = runtime.launches()
+    print(f"[sweep] launches {path_launches['sweep']}", flush=True)
+    bad = [r for r in sweep_rows if r[2] == "cuda" and not np.isfinite(r[3])]
+    check(not bad, f"sweep: a kernel could not run a case: {bad}")
+    check(all(path_launches["sweep"][name] > 0 for name in sweeps),
+          f"sweep: a family launched no kernel: {path_launches['sweep']}")
+
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"
     main_rows = {"gram": main_gram, "qgram_packed": main_qgram,
                  "epilogue": next(r for r in main_epi if r["tag"].endswith(" kl")),
-                 "epilogue_fleet": next(r for r in main_fleet if r["tag"].endswith(" kl"))}
+                 "epilogue_fleet": next(r for r in main_fleet if r["tag"].endswith(" kl")),
+                 "quant_encode": main_enc, "quant_decode": main_dec, "qgram": main_unpacked,
+                 "decode_attn": main_attn}
     kernels = []
     for name, replaces in (
         ("gram", "src/repro/kernels/gram/gram.py:35"),
         ("qgram_packed", "src/repro/kernels/qgram/packed.py:87"),
         ("epilogue", "src/repro/kernels/epilogue/epilogue.py:142"),
         ("epilogue_fleet", "src/repro/kernels/epilogue/epilogue.py:113"),
+        ("quant_encode", "src/repro/kernels/quant/quant.py:56"),
+        ("quant_decode", "src/repro/kernels/quant/quant.py:75"),
+        ("qgram", "src/repro/kernels/qgram/qgram.py:51"),
+        ("decode_attn", "src/repro/kernels/decode_attn/decode_attn.py:62"),
     ):
         row = main_rows[name]
         errs = [r["err"] for r in results[name]] + [
@@ -704,7 +1062,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": f"{src}/{name}.cu",
             "replaces": replaces,
-            "launches": sum(counts[name] for counts in path_launches.values()),
+            "launches": sum(counts.get(name, 0) for counts in path_launches.values()),
             "max_abs_err": max(errs), "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],

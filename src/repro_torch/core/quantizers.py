@@ -10,6 +10,7 @@ rate-indexed tables, so heterogeneous per-dimension rates need no loop.
 """
 from __future__ import annotations
 
+import heapq
 from functools import lru_cache
 
 import numpy as np
@@ -21,6 +22,7 @@ __all__ = [
     "gauss_bin_edges",
     "gauss_centroids",
     "unit_distortion",
+    "allocate_bits_greedy",
     "build_codebook_tables",
     "quantize",
     "dequantize",
@@ -56,6 +58,35 @@ def unit_distortion(rate: int) -> float:
     """e(1, R) = 1 - 2^{-R} * sum(c_i^2): MSE of quantizing a standard normal."""
     c = gauss_centroids(rate)
     return float(1.0 - np.sum(c**2) / (1 << rate))
+
+
+def allocate_bits_greedy(
+    variances: np.ndarray, total_bits: int, max_bits: int = DEFAULT_MAX_BITS
+) -> np.ndarray:
+    """Paper Algorithm 1 on the host: give each of ``total_bits`` in turn to
+    the dimension whose distortion drops the most (a heap; ties go to the
+    lower dimension, as the reference's heap does).  Returns int32 rates
+    (d,), summing to ``total_bits`` unless every dimension reaches
+    ``max_bits`` or no dimension gains anything."""
+    variances = np.asarray(variances, dtype=np.float64)
+    d = variances.shape[0]
+    rates = np.zeros(d, dtype=np.int32)
+
+    def gain(var, r):
+        return var * (unit_distortion(r) - unit_distortion(r + 1))
+
+    heap = [(-gain(variances[i], 0), i) for i in range(d)]
+    heapq.heapify(heap)
+    remaining = int(total_bits)
+    while remaining > 0 and heap:
+        neg_g, i = heapq.heappop(heap)
+        if neg_g >= 0.0:  # no dimension gains anything (all variances 0)
+            break
+        rates[i] += 1
+        remaining -= 1
+        if rates[i] < max_bits:
+            heapq.heappush(heap, (-gain(variances[i], int(rates[i])), i))
+    return rates
 
 
 def build_codebook_tables(max_bits: int = DEFAULT_MAX_BITS, device=None):

@@ -24,7 +24,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "Built", "build_dir", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gram", "qgram_packed", "epilogue", "epilogue_fleet")
+SOURCES = ("gram", "qgram_packed", "epilogue", "epilogue_fleet", "quant_encode",
+           "quant_decode", "qgram", "decode_attn")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,0 +1,129 @@
+"""Public wrapper of the decode-attention kernel — counterpart of
+``repro/kernels/decode_attn/ops.py``.
+
+:func:`decode_attn` attends one query token per (batch, query head) to a
+(ring) KV cache: through the hand-written Hopper kernel
+(``csrc/decode_attn.cu``, family ``"decode_attn"``) for CUDA tensors and
+through :func:`.ref.decode_attn_plain` for CPU tensors
+(:func:`repro_torch.kernels.runtime.choose`).  Both return the normalized
+output, as the reference's public function does.  The kernel masks the
+ragged end of S itself, so nothing is padded here (the reference pads S to
+a chunk multiple with empty slots).  It splits S across blocks when
+B x KV is small against the card's SMs; :func:`plan` picks the split.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import build, runtime
+from .ref import NEG, decode_attn_plain
+
+__all__ = ["decode_attn", "decode_attn_cuda", "decode_attn_plain", "plan", "FAMILY", "NEG"]
+
+TILE = 128  # cache slots per tile of the kernel (its threads per block)
+GROUP = 8  # query heads per block
+HD_MAX = 512  # largest head dim the kernel takes
+_BLOCKS_PER_SM = 4
+
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = build.library("decode_attn").repro_decode_attn
+        i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
+        fn.argtypes = ([i32] * 10 + [ptr] * 5 + [i64, i32, i64] + [ptr] * 5)
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def plan(B: int, S: int, KV: int, G: int, sms: int = 132) -> tuple[int, int]:
+    """(splits, tiles per split) of S for the kernel's first pass: about
+    four blocks per SM over B x KV x ceil(G / 8) x splits, every split
+    non-empty (four measured faster than eight and sixteen at the bench
+    shape on the H100)."""
+    tiles = math.ceil(S / TILE)
+    base = B * KV * math.ceil(G / GROUP)
+    want = max(1, min(tiles, math.ceil(_BLOCKS_PER_SM * sms / max(base, 1))))
+    tps = math.ceil(tiles / want)
+    return math.ceil(tiles / tps), tps
+
+
+def _need(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"decode_attn kernel: {msg}")
+
+
+_TYPES = (torch.float32, torch.bfloat16)
+
+
+def decode_attn_cuda(q, K, V, kpos, pos, *, window=None):
+    """Launch the Hopper kernel: q (B, KV, G, hd) and K, V (B, S, KV, hd)
+    float32 or bfloat16 (K and V of one type), kpos (B, S) int32, all
+    contiguous on one CUDA device; pos a Python int or a 0-d int32 tensor
+    on that device (read by the kernel, never synchronized on); window None
+    or an int.  -> (B, KV, G, hd) fp32.  Raises on a bad operand or a
+    refused launch; never falls back."""
+    dev = q.device
+    _need(dev.type == "cuda", f"q on {dev}, not a CUDA device")
+    _need(q.dim() == 4 and K.dim() == 4 and V.dim() == 4 and kpos.dim() == 2,
+          f"expects q (B, KV, G, hd), K/V (B, S, KV, hd), kpos (B, S); got "
+          f"{tuple(q.shape)}, {tuple(K.shape)}, {tuple(V.shape)}, {tuple(kpos.shape)}")
+    B, KV, G, hd = q.shape
+    S = K.shape[1]
+    _need(tuple(K.shape) == (B, S, KV, hd) and tuple(V.shape) == (B, S, KV, hd),
+          f"K and V must be ({B}, S, {KV}, {hd}), got {tuple(K.shape)} and {tuple(V.shape)}")
+    _need(tuple(kpos.shape) == (B, S), f"kpos must be ({B}, {S}), got {tuple(kpos.shape)}")
+    _need(S > 0, "the cache has no slots (S = 0)")
+    _need(hd <= HD_MAX, f"head dim {hd} above {HD_MAX}")
+    if q.dtype not in _TYPES or K.dtype not in _TYPES or V.dtype != K.dtype:
+        raise TypeError(f"decode_attn kernel takes q and K = V in float32 or bfloat16, got "
+                        f"{q.dtype}, {K.dtype}, {V.dtype}")
+    if kpos.dtype != torch.int32:
+        raise TypeError(f"decode_attn kernel takes int32 kpos, got {kpos.dtype}")
+    for name, t in (("q", q), ("K", K), ("V", V), ("kpos", kpos)):
+        _need(t.device == dev, f"{name} on {t.device}, q on {dev}")
+        _need(t.is_contiguous(), f"{name} must be contiguous")
+    if isinstance(pos, torch.Tensor):
+        _need(pos.dim() == 0 and pos.dtype == torch.int32 and pos.device == dev,
+              f"pos must be a 0-d int32 tensor on {dev}, got {pos.dtype} "
+              f"{tuple(pos.shape)} on {pos.device}")
+        pos_ptr, pos_val = pos.data_ptr(), 0
+    else:
+        pos_ptr, pos_val = None, int(pos)
+    has_window, win = (0, 0) if window is None else (1, int(window))
+    out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    nsplit, tps = plan(B, S, KV, G, torch.cuda.get_device_properties(dev).multi_processor_count)
+    part_acc = torch.empty((B, KV, nsplit, G, hd), dtype=torch.float32, device=dev)
+    part_md = torch.empty((2, B, KV, nsplit, G), dtype=torch.float32, device=dev)
+    vec = int(hd % 8 == 0 and K.data_ptr() % 16 == 0 and V.data_ptr() % 16 == 0)
+    bf = torch.bfloat16
+    with torch.cuda.device(dev):
+        err = _fn()(
+            int(q.dtype == bf), int(K.dtype == bf), vec, B, S, KV, G, hd, nsplit, tps,
+            q.data_ptr(), K.data_ptr(), V.data_ptr(), kpos.data_ptr(), pos_ptr, pos_val,
+            has_window, win, part_acc.data_ptr(), part_md[0].data_ptr(),
+            part_md[1].data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"decode_attn kernel launch failed: CUDA error {err}")
+    FAMILY.launches += 1
+    return out
+
+
+FAMILY = runtime.register("decode_attn", decode_attn_cuda, decode_attn_plain)
+
+
+def decode_attn(q, K, V, kpos, pos, *, window=None):
+    """Single-token GQA attention over a ring KV cache: q (B, KV, G, hd),
+    K/V (B, S, KV, hd), kpos (B, S) (-1 = empty slot), pos the current
+    position; optional sliding ``window``.  Returns (B, KV, G, hd) fp32."""
+    return runtime.choose("decode_attn", q)(q, K, V, kpos, pos, window=window)

@@ -1,13 +1,18 @@
-"""Public wrappers of the fused packed-words dequantize+gram kernel —
-counterpart of ``repro/kernels/qgram/ops.py`` (the packed path).
+"""Public wrappers of the fused dequantize+gram kernels — counterpart of
+``repro/kernels/qgram/ops.py``.
 
-:func:`qgram_packed_batched` computes, for every machine at once,
-G[b] = decode(unpack(words[b])) proj[b]^T straight from the packed code
-plane: through the hand-written Hopper kernel (``csrc/qgram_packed.cu``, ONE
-launch over the machine axis) for CUDA tensors, and through
-:func:`.ref.qgram_packed_plain` for CPU tensors.  Words are the port's
-int32 tensors carrying the uint32 bit pattern (see
-:mod:`repro_torch.core.torch_scheme`).
+* :func:`qgram_packed_batched` computes, for every machine at once,
+  G[b] = decode(unpack(words[b])) proj[b]^T straight from the packed code
+  plane: through the hand-written Hopper kernel (``csrc/qgram_packed.cu``,
+  ONE launch over the machine axis) for CUDA tensors, and through
+  :func:`.ref.qgram_packed_plain` for CPU tensors.  Words are the port's
+  int32 tensors carrying the uint32 bit pattern (see
+  :mod:`repro_torch.core.torch_scheme`).
+* :func:`qgram_batched` / :func:`qgram` — the reference's unpacked-code
+  API: G[b] = decode(codes[b]) y[b]^T from int32 codes (-1 rows, and any
+  code outside the table, decode to 0), through ``csrc/qgram.cu`` (family
+  ``"qgram"``, again one launch over the machines) or
+  :func:`.ref.qgram_plain`.
 """
 from __future__ import annotations
 
@@ -17,12 +22,14 @@ import torch
 
 from ...core.torch_scheme import WORD_BITS, row_words
 from .. import build, runtime
-from .ref import qgram_packed_plain
+from .ref import qgram_packed_plain, qgram_plain
 
 __all__ = ["qgram_packed", "qgram_packed_batched", "qgram_packed_cuda",
-           "qgram_packed_plain", "pack_meta", "FAMILY"]
+           "qgram_packed_plain", "pack_meta", "FAMILY", "qgram", "qgram_batched",
+           "qgram_cuda", "qgram_plain", "QGRAM_FAMILY"]
 
 _FN = None
+_QGRAM_FN = None
 
 
 def _fn():
@@ -113,3 +120,79 @@ def qgram_packed(words, rates, scaled_cents, y, *, total_bits, mask=None):
         words[None], rates[None], scaled_cents[None], y, total_bits=total_bits,
         mask=None if mask is None else mask[None],
     )[0]
+
+
+# --------------------------------------------------------------------------
+# the unpacked int32-code API
+# --------------------------------------------------------------------------
+
+
+def _qgram_fn():
+    global _QGRAM_FN
+    if _QGRAM_FN is None:
+        fn = build.library("qgram").repro_qgram_f32
+        ptr = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int] * 5 + [ptr, ptr, ptr, ctypes.c_int64, ptr, ptr]
+        fn.restype = ctypes.c_int
+        _QGRAM_FN = fn
+    return _QGRAM_FN
+
+
+def _need_q(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"qgram kernel: {msg}")
+
+
+def qgram_cuda(codes, scaled_cents, y):
+    """Launch the Hopper kernel once over all machines: codes (m, n, d)
+    int32, scaled_cents (m, d, C) fp32, y (p, d) or (m, p, d) fp32, all
+    contiguous on one CUDA device -> (m, n, p).  Raises on a bad operand or
+    a refused launch; never falls back."""
+    dev = codes.device
+    _need_q(dev.type == "cuda", f"codes on {dev}, not a CUDA device")
+    _need_q(codes.dim() == 3 and scaled_cents.dim() == 3,
+            f"expects codes (m, n, d) and scaled_cents (m, d, C), got "
+            f"{tuple(codes.shape)} and {tuple(scaled_cents.shape)}")
+    m, n, d = codes.shape
+    C = scaled_cents.shape[-1]
+    _need_q(tuple(scaled_cents.shape[:2]) == (m, d),
+            f"scaled_cents must be ({m}, {d}, C), got {tuple(scaled_cents.shape)}")
+    _need_q(y.dim() in (2, 3) and y.shape[-1] == d and (y.dim() == 2 or y.shape[0] == m),
+            f"y must be (p, {d}) or ({m}, p, {d}), got {tuple(y.shape)}")
+    if codes.dtype != torch.int32:
+        raise TypeError(f"qgram kernel takes int32 codes, got {codes.dtype}")
+    for name, t in (("scaled_cents", scaled_cents), ("y", y)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"qgram kernel takes float32 {name}, got {t.dtype}")
+    for name, t in (("codes", codes), ("scaled_cents", scaled_cents), ("y", y)):
+        _need_q(t.device == dev, f"{name} on {t.device}, codes on {dev}")
+        _need_q(t.is_contiguous(), f"{name} must be contiguous")
+    p = y.shape[-2]
+    out = torch.empty((m, n, p), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0 or p == 0:
+        return out
+    y_bs = p * d if y.dim() == 3 else 0  # a shared y: stride 0 over machines
+    with torch.cuda.device(dev):
+        err = _qgram_fn()(
+            m, n, p, d, C, codes.data_ptr(), scaled_cents.data_ptr(), y.data_ptr(),
+            y_bs, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"qgram kernel launch failed: CUDA error {err}")
+    QGRAM_FAMILY.launches += 1
+    return out
+
+
+QGRAM_FAMILY = runtime.register("qgram", qgram_cuda, qgram_plain)
+
+
+def qgram_batched(codes, scaled_cents, y):
+    """G = decode(codes) y^T for every machine: codes (m, n, d) int32 (pad
+    rows with -1 so they decode to 0), scaled_cents (m, d, C), y (p, d)
+    shared or (m, p, d) -> (m, n, p)."""
+    return runtime.choose("qgram", codes)(codes, scaled_cents, y)
+
+
+def qgram(codes, scaled_cents, y):
+    """One machine: codes (n, d), scaled_cents (d, C), y (p, d) -> (n, p)."""
+    return qgram_batched(codes[None], scaled_cents[None], y)[0]

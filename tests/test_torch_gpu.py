@@ -6,7 +6,9 @@ tests/test_torch_gpu.py``.  Without a card every test skips (the decision is
 taken inside the ``cuda`` fixture, so every worker collects the same tests).
 Each kernel is held against its plain PyTorch version on the same inputs:
 fp32 sums in different orders, no TF32, so rtol 1e-5 with atol 1e-5 times
-the output's scale — except the epilogue, whose variance cancels
+the output's scale (the quantizer encode and decode: bitwise; decode
+attention: 1e-5 x max|V|, its output being a convex combination of V's
+rows) — except the epilogue, whose variance cancels
 (s2 = gss - quad): it is held within ``epilogue_error_bound``, the fp32
 rounding of its sums against the sum of their absolute terms, carried
 through each fusion's rows (tests/test_torch_epilogue.py checks that bound
@@ -34,7 +36,15 @@ from repro_torch.kernels.epilogue.ref import (  # noqa: E402
     epilogue_moments_fleet_plain, epilogue_moments_plain,
 )
 from repro_torch.kernels.qgram.ops import (  # noqa: E402
-    qgram_packed_cuda, qgram_packed_plain,
+    qgram_cuda, qgram_packed_cuda, qgram_packed_plain, qgram_plain,
+)
+from repro_torch.kernels.quant.cases import qgram_operands, quant_operands  # noqa: E402
+from repro_torch.kernels.quant.ops import (  # noqa: E402
+    decode_cuda, decode_plain, encode_cuda, encode_plain,
+)
+from repro_torch.kernels.decode_attn.cases import decode_attn_operands  # noqa: E402
+from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
+    decode_attn_cuda, decode_attn_plain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -242,3 +252,106 @@ def test_fleet_predict_on_card_is_one_fleet_launch(cuda):
     stack.admit(5, tenants[5])  # evicts tenant 0
     stack.predict([4, 5, 1, 3], X4)
     assert stack.data_ptrs() == ptrs and stack.swaps == 2
+
+
+@pytest.mark.parametrize("n,d,bits,max_bits,zero_dims,dominant,specials", [
+    (1024, 128, 512, 8, (), False, False),  # the kernels bench shape: 4 d bits, max 8
+    (25, 21, 24, 12, (), False, False),     # one machine of the Fig. 6 wire
+    (25, 21, 48, 12, (), True, False),      # a 12-bit dimension: a 4096-edge row
+    (37, 13, 30, 12, (2, 7), False, True),  # ragged, rate-0 dims, NaN / +-inf / on-edge
+    (9, 5, 0, 8, (), False, True),          # bits = 0: every dim rate 0, E = 128
+])
+def test_quant_kernels_bitwise(cuda, n, d, bits, max_bits, zero_dims, dominant, specials):
+    x, edges, cents, _ = quant_operands(n, d, bits, max_bits=max_bits, seed=n + d,
+                                        zero_dims=zero_dims, dominant=dominant,
+                                        specials=specials)
+    xc, ec, cc = x.to(cuda), edges.to(cuda), cents.to(cuda)
+    before = runtime.launches()
+    codes = encode_cuda(xc, ec)
+    torch.cuda.synchronize()
+    assert torch.equal(codes.cpu(), encode_plain(x, edges))
+    assert torch.equal(codes, encode_plain(xc, ec))
+    # in-range codes, the -1 sentinel and codes >= C all held bitwise
+    probe = codes.clone()
+    probe[0] = -1
+    probe[-1] = cents.shape[1] + 3
+    xhat = decode_cuda(probe, cc)
+    torch.cuda.synchronize()
+    assert torch.equal(xhat, decode_plain(probe, cc))
+    assert not bool(xhat[0].any()) and not bool(xhat[-1].any())
+    after = runtime.launches()
+    assert after["quant_encode"] == before["quant_encode"] + 1
+    assert after["quant_decode"] == before["quant_decode"] + 1
+
+
+@pytest.mark.parametrize("m,n,d,p,bits,pad_rows,shared_y", [
+    (1, 1024, 128, 1024, 512, 0, True),  # the kernels bench shape
+    (39, 25, 21, 25, 24, 7, False),      # the Fig. 6 wire, -1 padded rows, per-machine y
+    (3, 37, 13, 70, 30, 5, True),        # ragged tiles, shared y
+])
+def test_qgram_kernel(cuda, m, n, d, p, bits, pad_rows, shared_y):
+    codes, cents, y = qgram_operands(m, n, d, p, bits, max_bits=12, seed=m + n,
+                                     pad_rows=pad_rows, shared_y=shared_y)
+    before = runtime.family("qgram").launches
+    got = qgram_cuda(codes.to(cuda), cents.to(cuda), y.to(cuda))
+    torch.cuda.synchronize()
+    assert runtime.family("qgram").launches == before + 1
+    assert got.shape == (m, n + pad_rows, p)
+    _close(got.cpu().numpy(), qgram_plain(codes, cents, y).numpy())
+    assert not bool(got[:, n:].any())  # -1 rows decode to 0
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,q_dtype,kv_dtype,window,pos,ring,empty", [
+    (2, 1000, 4, 8, 128, torch.float32, torch.bfloat16, None, 999, False, ()),  # bench-like
+    (2, 8192, 4, 2, 256, torch.float32, torch.bfloat16, 4096, 10000, True, ()),  # gemma2 local
+    (3, 333, 2, 3, 40, torch.float32, torch.float32, None, 300, False, (1,)),  # ragged, no key
+    (2, 130, 1, 12, 16, torch.bfloat16, torch.float32, 64, 120, True, ()),  # G > 8, bf16 q
+    (1, 64, 2, 2, 8, torch.float32, torch.float32, 0, 63, False, ()),  # window 0: none valid
+])
+def test_decode_attn_kernel(cuda, B, S, KV, G, hd, q_dtype, kv_dtype, window, pos, ring,
+                            empty):
+    q, K, V, kpos = decode_attn_operands(B, S, KV, G, hd, pos=pos, q_dtype=q_dtype,
+                                         kv_dtype=kv_dtype, ring=ring, empty_rows=empty,
+                                         seed=S, device=cuda)
+    before = runtime.family("decode_attn").launches
+    got = decode_attn_cuda(q, K, V, kpos, pos, window=window)
+    again = decode_attn_cuda(q, K, V, kpos, torch.tensor(pos, dtype=torch.int32,
+                                                         device=cuda), window=window)
+    torch.cuda.synchronize()
+    assert runtime.family("decode_attn").launches == before + 2
+    assert torch.equal(got, again)  # pos by value or on the card; the same bits
+    want = decode_attn_plain(q, K, V, kpos, pos, window=window)
+    assert got.shape == (B, KV, G, hd) and bool(torch.isfinite(got).all())
+    tol = 1e-5 * float(V.float().abs().max())
+    assert float((got - want).abs().max()) <= tol
+    for b in empty:  # no valid key: the mean of V over the S slots
+        mean = V[b].float().mean(0)[:, None, :].expand(KV, G, hd)
+        assert float((got[b] - mean).abs().max()) <= tol
+
+
+def test_new_kernels_refuse_bad_operands(cuda):
+    x, edges, cents, _ = quant_operands(8, 4, 8)
+    xc, ec, cc = x.to(cuda), edges.to(cuda), cents.to(cuda)
+    codes = encode_cuda(xc, ec)
+    with pytest.raises(TypeError):
+        encode_cuda(xc.double(), ec)
+    with pytest.raises(ValueError, match="contiguous"):
+        encode_cuda(xc.T.contiguous().T, ec)
+    with pytest.raises(TypeError):
+        decode_cuda(codes.long(), cc)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_cuda(codes, cc.T.contiguous().T)
+    qc, qt, qy = (t.to(cuda) for t in qgram_operands(2, 5, 4, 3, 8))
+    with pytest.raises(TypeError):
+        qgram_cuda(qc.long(), qt, qy)
+    with pytest.raises(ValueError, match="contiguous"):
+        qgram_cuda(qc, qt, qy.T.contiguous().T)
+    q, K, V, kpos = decode_attn_operands(1, 16, 2, 2, 8, pos=15, device=cuda)
+    with pytest.raises(TypeError):
+        decode_attn_cuda(q.half(), K, V, kpos, 15)
+    with pytest.raises(TypeError):
+        decode_attn_cuda(q, K, V, kpos.long(), 15)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attn_cuda(q, K.transpose(1, 2).contiguous().transpose(1, 2), V, kpos, 15)
+    with pytest.raises(ValueError, match="0-d int32"):
+        decode_attn_cuda(q, K, V, kpos, torch.tensor([15], device=cuda))
