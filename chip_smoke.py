@@ -27,13 +27,21 @@ into a pass):
    (1024, 128, 1024) and a ragged batched shape with -1 rows;
    ``decode_attn`` within 1e-5 max|V| at the bench shape B = 8, S = 8192,
    KV = 4, G = 8, hd = 128 with bf16 K/V, a gemma2-2b local layer (G = 2,
-   hd = 256, window 4096) on a permuted ring cache, a ragged S and a row
-   with no valid key; two launches give the same bits) — with the max abs
-   / relative error against the stated tolerance, and the device time of
-   the kernel, the plain version and one PyTorch call that computes the
-   same function where there is one (``torch.matmul``,
+   hd = 256, window 4096) on a permuted ring cache and on a ring in slot
+   order (slot = kpos mod S), the bench shape partly filled (pos = 2047)
+   and with fp32 K/V (the block kernel), a ragged S, rows with no valid key (an emptied row, window 0: the mean
+   of V), window 1, a row whose valid slots all fall in one split and
+   hd = 512 (the block kernel); two launches give the same bits) — with
+   the max abs / relative error against the stated tolerance, and the
+   device time of the kernel, the plain version and one PyTorch call that
+   computes the same function where there is one (``torch.matmul``,
    ``torch.searchsorted``, ``torch.gather``,
-   ``F.scaled_dot_product_attention``).
+   ``F.scaled_dot_product_attention``).  ``gram`` prints the plan (tile
+   configuration / splits of K) of every timed product, checks the tiles'
+   residency that ``gram.plan`` assumes against the card's occupancy,
+   gives the same bits on two launches at 4449 x 40000, forward and
+   backward (split K), and holds a ragged long-K product (130 x 21,
+   K = 20000, split) forward and backward against the plain version.
 4. The paths at the paper's Fig. 6 SARCOS setting (N = 1000, d = 21,
    m = 40, SE kernel, R = 24 bits/sample, 150 Adam steps, 4449 test points
    in 35 batches of 128), each on the card with ``gram_backend="pallas"``
@@ -127,7 +135,10 @@ def main():
     from repro_torch.core.registry import FUSIONS
     from repro_torch.data.synthetic import regression_dataset
     from repro_torch.kernels import build, runtime
+    from repro_torch.kernels.gram.ops import TILES as GRAM_TILES
     from repro_torch.kernels.gram.ops import gram, gram_cuda, gram_plain
+    from repro_torch.kernels.gram.ops import plan as gram_plan
+    from repro_torch.kernels.gram.ops import residency as gram_residency
     from repro_torch.kernels.qgram.ops import (
         qgram_batched, qgram_cuda, qgram_packed_batched, qgram_packed_cuda,
         qgram_packed_plain, qgram_plain,
@@ -140,6 +151,7 @@ def main():
     )
     from repro_torch.kernels.decode_attn.cases import decode_attn_operands
     from repro_torch.kernels.decode_attn.ops import decode_attn_cuda, decode_attn_plain
+    from repro_torch.kernels.decode_attn.ops import plan as attn_plan
     from repro_torch.kernels.epilogue.cases import epilogue_fleet_operands, epilogue_operands
     from repro_torch.kernels.epilogue.ops import (
         epilogue_cuda, epilogue_fleet_cuda, epilogue_moments, plan, plan_fleet,
@@ -219,12 +231,19 @@ def main():
         t_b, t_f = nbytes / HBM_BYTES * 1e3, flops / FP32_FLOPS * 1e3
         return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
-    def gram_case(tag, n, p, d, reps, timed=True, backward=True):
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan_str = lambda pl: f"{pl.tile}/{pl.splits}"  # tile configuration / splits of K
+
+    def gram_case(tag, n, p, d, reps, timed=True, backward=True, same_bits=False):
         x = torch.randn(n, d, generator=gen).to(dev)
         y = torch.randn(p, d, generator=gen).to(dev)
         scale = float((x.abs() @ y.abs().T).max())
-        err = compare("gram", tag, gram_cuda(x, y), gram_plain(x, y), scale)
+        got = gram_cuda(x, y)
+        err = compare("gram", tag, got, gram_plain(x, y), scale)
         row = {"tag": tag, "err": err}
+        fwd_plan = gram_plan(n, p, d, sms)
+        if same_bits:
+            check(torch.equal(got, gram_cuda(x, y)), f"gram {tag}: two launches differ")
         if backward:
             g = torch.randn(n, p, generator=gen).to(dev)
             xr, yr = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
@@ -236,13 +255,25 @@ def main():
                         float((g.abs().T @ x.abs()).max())),
             )
             row["err_bwd"] = err_b
+            bwd_plans = gram_plan(n, d, p, sms), gram_plan(p, d, n, sms)  # dX = g Y, dY = g^T X
+            if same_bits:
+                xr2, yr2 = x.clone().requires_grad_(True), y.clone().requires_grad_(True)
+                gram(xr2, yr2).backward(g)
+                check(torch.equal(xr.grad, xr2.grad) and torch.equal(yr.grad, yr2.grad),
+                      f"gram {tag}: two backward launches differ")
+        if same_bits:
+            print(f"[kernel] gram          {tag:44s} two launches give the same bits: forward "
+                  f"({plan_str(fwd_plan)})" + (f", backward dX ({plan_str(bwd_plans[0])}) and dY "
+                                              f"({plan_str(bwd_plans[1])})" if backward else ""),
+                  flush=True)
         if timed:
             row["ms"] = device_ms(lambda: gram_cuda(x, y), reps)
             row["plain_ms"] = device_ms(lambda: gram_plain(x, y), reps)
             row["library_ms"] = device_ms(lambda: torch.matmul(x, y.T), reps)
             row["bound_ms"], row["bound_by"] = bound(4 * (n * d + p * d + n * p),
                                                      2 * n * p * d)
-            msg = (f"[time]   gram          {tag:44s} kernel {row['ms']:.4f} ms  "
+            row["plan"] = plan_str(fwd_plan)
+            msg = (f"[time]   gram          {tag:44s} plan {row['plan']}  kernel {row['ms']:.4f} ms  "
                    f"plain {row['plain_ms']:.4f} ms  torch.matmul "
                    f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.7f} ms "
                    f"({row['bound_by']})")
@@ -253,7 +284,8 @@ def main():
                 # dX = g Y and dY = g^T X: read g, X, Y once, write dX, dY
                 row["bwd_bound_ms"], row["bwd_bound_by"] = bound(
                     4 * (n * p + 2 * n * d + 2 * p * d), 4 * n * p * d)
-                msg += (f"  | bwd kernel {row['bwd_ms']:.4f} ms  torch.matmul "
+                msg += (f"  | bwd plans dX {plan_str(bwd_plans[0])} dY {plan_str(bwd_plans[1])}  "
+                        f"kernel {row['bwd_ms']:.4f} ms  torch.matmul "
                         f"{row['bwd_library_ms']:.4f} ms  bound {row['bwd_bound_ms']:.7f} ms "
                         f"({row['bwd_bound_by']})")
             print(msg, flush=True)
@@ -305,11 +337,20 @@ def main():
         results["qgram_packed"].append(row)
         return row
 
+    # the tile configurations' residency that gram.plan assumes, against the card's
+    held = {tile: gram_residency(tile) for tile in GRAM_TILES}
+    print(f"[kernel] gram          blocks an SM holds, by tile: {held} (gram.TILES assumes "
+          f"{ {t: v[3] for t, v in GRAM_TILES.items()} })", flush=True)
+    check(all(held[t] == GRAM_TILES[t][3] for t in GRAM_TILES),
+          "gram: the card's residency differs from gram.TILES")
     main_gram = gram_case("serve: X* (128x21) . Xc (25x21)", 128, 25, 21, 200)
     gram_case("fit: Xc (25x21) . Xc (25x21)", 25, 25, 21, 200)
-    gram_case("larger: 4449 queries . 40000 rows, d=21", 4449, 40000, 21, 3)
+    gram_case("larger: 4449 queries . 40000 rows, d=21", 4449, 40000, 21, 3, same_bits=True)
     gram_case("ragged: 130x70, d=50", 130, 70, 50, 50, timed=False)
     gram_case("ragged: 1x1, d=1", 1, 1, 1, 50, timed=False)
+    gram_case("ragged long K: 130x21, K=20000 (split)", 130, 21, 20000, 50, timed=False,
+              same_bits=True)
+    check(gram_plan(130, 21, 20000, sms).splits > 1, "gram: the long-K case did not split")
     main_qgram = qgram_case("fit: 39 machines x 25 rows, p=25, R=24 (W=1)",
                             39, 25, 21, 25, 24, 200)
     qgram_case("larger: 40 x 1000 rows, p=4449, R=24", 40, 1000, 21, 4449, 24, 3)
@@ -527,10 +568,21 @@ def main():
 
     # decode attention: within 1e-5 x max|V| of the plain version
     def attn_case(tag, B, S, KV, G, hd, pos, reps=0, window=None, q_dtype=torch.float32,
-                  kv_dtype=torch.bfloat16, ring=False, empty=()):
+                  kv_dtype=torch.bfloat16, ring=False, empty=(), slot_order=False,
+                  one_split_row=None):
         q, K, V, kpos = decode_attn_operands(B, S, KV, G, hd, pos=pos, q_dtype=q_dtype,
                                              kv_dtype=kv_dtype, ring=ring, empty_rows=empty,
-                                             seed=S + hd, device=dev)
+                                             seed=S + hd, device=dev, slot_order=slot_order)
+        pl = attn_plan(B, S, KV, G, hd, K.element_size(), sms)
+        if one_split_row is not None:  # that row's valid slots: the first 40 of its first range
+            kpos[one_split_row] = -1
+            kpos[one_split_row, :40] = torch.arange(pos - 39, pos + 1, dtype=torch.int32,
+                                                    device=dev)
+            check(pl.splits > 1 and pl.slots_per_split >= 40,
+                  f"decode_attn {tag}: the plan does not split S past the row's valid slots")
+        valid = (kpos >= 0) & (kpos <= pos)
+        if window is not None:
+            valid &= kpos > pos - window
         got = decode_attn_cuda(q, K, V, kpos, pos, window=window)
         again = decode_attn_cuda(q, K, V, kpos, torch.tensor(pos, dtype=torch.int32, device=dev),
                                  window=window)
@@ -538,20 +590,20 @@ def main():
         torch.cuda.synchronize()
         vmax = float(V.float().abs().max())
         err, tol = float((got - want).abs().max()), 1e-5 * vmax
+        no_key = [b for b in range(B) if not bool(valid[b].any())]
         print(f"[kernel] decode_attn   {tag:44s} max_abs_err {err:.3e} tol {tol:.3e} "
-              f"(1e-5 max|V|)", flush=True)
+              f"(1e-5 max|V|)  plan {pl.path}/{pl.splits}x{pl.slots_per_split}  same bits "
+              f"{torch.equal(got, again)}  rows with no valid key {no_key}", flush=True)
         check(bool(torch.isfinite(got).all()), f"decode_attn {tag}: non-finite output")
         check(err <= tol, f"decode_attn {tag}: error {err:.3e} above {tol:.3e}")
         check(torch.equal(got, again), f"decode_attn {tag}: two launches differ")
-        for b in empty:
+        check(set(empty) <= set(no_key), f"decode_attn {tag}: an emptied row has a valid key")
+        for b in no_key:
             mean = V[b].float().mean(0)[:, None, :]
             check(float((got[b] - mean).abs().max()) <= tol,
                   f"decode_attn {tag}: a row with no valid key is not the mean of V")
         row = {"tag": tag, "err": err}
         if reps:
-            valid = (kpos >= 0) & (kpos <= pos)
-            if window is not None:
-                valid &= kpos > pos - window
             qh = q.reshape(B, KV * G, 1, hd).to(K.dtype)
             kh, vh = K.permute(0, 2, 1, 3), V.permute(0, 2, 1, 3)  # views
             mask = valid[:, None, None, :]
@@ -585,6 +637,15 @@ def main():
               kv_dtype=torch.float32)
     attn_case("no valid key in row 1, S=333, hd=40, bf16 q", 3, 333, 2, 3, 40, 300,
               q_dtype=torch.bfloat16, empty=(1,), window=100)
+    attn_case("gemma2-2b local, ring in slot order", 8, 8192, 4, 2, 256, 10000, reps=20,
+              window=4096, ring=True, slot_order=True)
+    attn_case("bench partly filled: pos=2047 of S=8192", 8, 8192, 4, 8, 128, 2047, reps=20)
+    attn_case("bench, K/V fp32 (block kernel)", 8, 8192, 4, 8, 128, 8191, reps=20,
+              kv_dtype=torch.float32)
+    attn_case("window 0: no valid key, the mean of V", 2, 1000, 4, 8, 128, 999, window=0)
+    attn_case("window 1: one valid key", 2, 1000, 4, 8, 128, 999, window=1)
+    attn_case("row 2's valid slots in one split", 4, 8192, 4, 8, 128, 8191, one_split_row=2)
+    attn_case("hd=512 bf16 (block kernel), G=4", 1, 700, 2, 4, 512, 650)
 
     # ---- 4. the paths: Fig. 6 SARCOS, fit -> save -> load -> serve --------
     X_tr, y_tr, X_te, y_te = regression_dataset("sarcos", seed=0)

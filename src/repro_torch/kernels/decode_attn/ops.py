@@ -8,12 +8,16 @@ through :func:`.ref.decode_attn_plain` for CPU tensors
 (:func:`repro_torch.kernels.runtime.choose`).  Both return the normalized
 output, as the reference's public function does.  The kernel masks the
 ragged end of S itself, so nothing is padded here (the reference pads S to
-a chunk multiple with empty slots).  It splits S across blocks when
-B x KV is small against the card's SMs; :func:`plan` picks the split.
+a chunk multiple with empty slots).  It reads kpos before any K or V row
+and reads only the valid slots' rows; it splits S across blocks when
+B x KV is small against the card's SMs.  :func:`plan` picks the kernel
+(the tensor-core warp kernel for bf16 K/V, the block kernel otherwise)
+and the split.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
@@ -21,12 +25,18 @@ import torch
 from .. import build, runtime
 from .ref import NEG, decode_attn_plain
 
-__all__ = ["decode_attn", "decode_attn_cuda", "decode_attn_plain", "plan", "FAMILY", "NEG"]
+__all__ = ["decode_attn", "decode_attn_cuda", "decode_attn_plain", "plan", "Plan", "FAMILY",
+           "NEG", "warp_smem"]
 
-TILE = 128  # cache slots per tile of the kernel (its threads per block)
 GROUP = 8  # query heads per block
 HD_MAX = 512  # largest head dim the kernel takes
-_BLOCKS_PER_SM = 4
+HD_MMA = 256  # largest head dim of the tensor-core path
+_BLOCKS_PER_SM = 4  # block kernel: split S until the grid holds about this many blocks an SM
+_TILE = 128  # block kernel: most valid slots a tile takes (one a thread)
+_WARP_SLOTS = 512  # warp kernel: most slots in a warp's range (its kpos list)
+_WARPS = 4  # warp kernel: warps of a block, each its own range, merged at the end
+_WARP_STAGES = 2  # warp kernel: stages in a warp's copy ring (WNST in the source)
+_SM_SMEM = 227 * 1024  # shared memory an SM gives its blocks (H100)
 
 _FN = None
 
@@ -36,22 +46,57 @@ def _fn():
     if _FN is None:
         fn = build.library("decode_attn").repro_decode_attn
         i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-        fn.argtypes = ([i32] * 10 + [ptr] * 5 + [i64, i32, i64] + [ptr] * 5)
+        fn.argtypes = ([i32] * 11 + [ptr] * 5 + [i64, i32, i64] + [ptr] * 5)
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def plan(B: int, S: int, KV: int, G: int, sms: int = 132) -> tuple[int, int]:
-    """(splits, tiles per split) of S for the kernel's first pass: about
-    four blocks per SM over B x KV x ceil(G / 8) x splits, every split
-    non-empty (four measured faster than eight and sixteen at the bench
-    shape on the H100)."""
-    tiles = math.ceil(S / TILE)
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How ``csrc/decode_attn.cu`` walks the cache.  ``path`` "mma": the
+    warp kernel (bf16 K/V, scores and weighted sum on the tensor cores),
+    "simt": the block kernel (CUDA cores).  S is cut into ``splits`` ranges
+    of ``slots_per_split`` (a multiple of 128; the last may be shorter,
+    none is empty)."""
+
+    path: str
+    splits: int
+    slots_per_split: int
+
+
+def warp_smem(hd: int, q_terms: int) -> int:
+    """Shared memory of one warp-kernel block (``WarpLayout`` in the
+    source): Q^T's B fragments, then for each of its four warps a slot list
+    and a ring of 16-slot K and V stages at a row pitch of hd rounded up to
+    16, plus 8."""
+    hdp = -(-hd // 16) * 16
+    per_warp = _WARP_SLOTS * 4 + 2 * _WARP_STAGES * 16 * (hdp + 8) * 2
+    return q_terms * (hdp // 16) * 32 * 8 + _WARPS * per_warp
+
+
+def plan(B: int, S: int, KV: int, G: int, hd: int, kv_bytes: int, sms: int = 132,
+         aligned: bool = True) -> Plan:
+    """The kernel's plan for B x KV x G heads over S slots of head dim
+    ``hd`` in ``kv_bytes``-byte K/V elements, on a card with ``sms`` SMs
+    (``aligned``: K and V start on 16 bytes) — a function of its arguments
+    alone.  bf16 K/V with 16-byte rows and hd <= 256 take the warp kernel:
+    blocks of four warps, a warp a quarter of the block's range (at most
+    512 slots), as many ranges over B x KV x ceil(G / 8) as the SMs hold
+    blocks at once (by shared memory, :func:`warp_smem`, as for fp32 q),
+    stages of 16 slots in a ring of two.  The rest take the block kernel:
+    about four blocks an SM, tiles of up to 128 valid slots."""
     base = B * KV * math.ceil(G / GROUP)
+    if kv_bytes == 2 and aligned and hd % 8 == 0 and hd <= HD_MMA:
+        per_sm = _SM_SMEM // (warp_smem(hd, q_terms=3) + 1024)  # blocks an SM holds at once
+        want = max(1, per_sm * sms // base)  # ranges a row, the grid within one wave
+        unit = 32 * _WARPS  # a block's range: four warp ranges of whole 32-slot windows
+        sps = min(_WARPS * _WARP_SLOTS, max(unit, -(-math.ceil(S / want) // unit) * unit))
+        return Plan("mma", math.ceil(S / sps), sps)
+    tiles = math.ceil(S / _TILE)
     want = max(1, min(tiles, math.ceil(_BLOCKS_PER_SM * sms / max(base, 1))))
-    tps = math.ceil(tiles / want)
-    return math.ceil(tiles / tps), tps
+    sps = math.ceil(tiles / want) * _TILE
+    return Plan("simt", math.ceil(S / sps), sps)
 
 
 def _need(cond: bool, msg: str):
@@ -100,14 +145,17 @@ def decode_attn_cuda(q, K, V, kpos, pos, *, window=None):
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    nsplit, tps = plan(B, S, KV, G, torch.cuda.get_device_properties(dev).multi_processor_count)
+    vec = hd % 8 == 0 and K.data_ptr() % 16 == 0 and V.data_ptr() % 16 == 0
+    pl = plan(B, S, KV, G, hd, K.element_size(),
+              torch.cuda.get_device_properties(dev).multi_processor_count, aligned=vec)
+    nsplit = pl.splits
     part_acc = torch.empty((B, KV, nsplit, G, hd), dtype=torch.float32, device=dev)
     part_md = torch.empty((2, B, KV, nsplit, G), dtype=torch.float32, device=dev)
-    vec = int(hd % 8 == 0 and K.data_ptr() % 16 == 0 and V.data_ptr() % 16 == 0)
     bf = torch.bfloat16
     with torch.cuda.device(dev):
         err = _fn()(
-            int(q.dtype == bf), int(K.dtype == bf), vec, B, S, KV, G, hd, nsplit, tps,
+            int(q.dtype == bf), int(K.dtype == bf), int(vec), int(pl.path == "mma"), B, S, KV,
+            G, hd, nsplit, pl.slots_per_split,
             q.data_ptr(), K.data_ptr(), V.data_ptr(), kpos.data_ptr(), pos_ptr, pos_val,
             has_window, win, part_acc.data_ptr(), part_md[0].data_ptr(),
             part_md[1].data_ptr(), out.data_ptr(),

@@ -307,6 +307,8 @@ def test_qgram_kernel(cuda, m, n, d, p, bits, pad_rows, shared_y):
     (3, 333, 2, 3, 40, torch.float32, torch.float32, None, 300, False, (1,)),  # ragged, no key
     (2, 130, 1, 12, 16, torch.bfloat16, torch.float32, 64, 120, True, ()),  # G > 8, bf16 q
     (1, 64, 2, 2, 8, torch.float32, torch.float32, 0, 63, False, ()),  # window 0: none valid
+    (2, 2500, 2, 4, 512, torch.float32, torch.bfloat16, None, 2400, True, (1,)),  # hd > 256
+    (2, 2500, 2, 9, 100, torch.float32, torch.bfloat16, 700, 2400, False, ()),  # 200-byte rows
 ])
 def test_decode_attn_kernel(cuda, B, S, KV, G, hd, q_dtype, kv_dtype, window, pos, ring,
                             empty):
@@ -355,3 +357,150 @@ def test_new_kernels_refuse_bad_operands(cuda):
         decode_attn_cuda(q, K.transpose(1, 2).contiguous().transpose(1, 2), V, kpos, 15)
     with pytest.raises(ValueError, match="0-d int32"):
         decode_attn_cuda(q, K, V, kpos, torch.tensor([15], device=cuda))
+
+
+# ---- the redesigned gram (tile plans, split K) and decode_attn (kpos first) ----
+
+from repro_torch.kernels.gram import ops as gram_ops  # noqa: E402
+from repro_torch.kernels.decode_attn.ops import plan as attn_plan  # noqa: E402
+
+
+def _gram_operands(seed, n, p, d):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)) for s in ((n, d), (p, d), (n, p))]
+
+
+@pytest.mark.parametrize("n,p,d", [(130, 21, 20000),   # ragged n, narrow p, split K
+                                   (37, 23, 9000),
+                                   (300, 33, 5000),    # 33 columns: the small tile, split
+                                   (600, 28, 4000),    # 28 columns: the small tile, split
+                                   (129, 70, 3001)])   # ragged d
+def test_gram_long_k_forward_and_backward(cuda, n, p, d):
+    x, y, g = _gram_operands(n + p + d, n, p, d)
+    assert gram_ops.plan(n, p, d, torch.cuda.get_device_properties(cuda).multi_processor_count).splits > 1
+    got = gram_cuda(x.to(cuda), y.to(cuda))
+    _close(got.cpu().numpy(), (x.double() @ y.double().T).numpy())
+    xr, yr = x.to(cuda).requires_grad_(True), y.to(cuda).requires_grad_(True)
+    gram(xr, yr).backward(g.to(cuda))
+    _close(xr.grad.cpu().numpy(), (g.double() @ y.double()).numpy())
+    _close(yr.grad.cpu().numpy(), (g.double().T @ x.double()).numpy())
+
+
+@pytest.mark.parametrize("n,p,d", [(4449, 21, 6000), (130, 21, 20000), (600, 24, 4000)])
+def test_gram_split_and_no_split_plans_agree(cuda, monkeypatch, n, p, d):
+    x, y, _ = _gram_operands(d, n, p, d)
+    xc, yc = x.to(cuda), y.to(cuda)
+    split = gram_cuda(xc, yc)
+    pl = gram_ops.plan(n, p, d, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert pl.splits > 1
+    bk = gram_ops.TILES[pl.tile][2]
+    monkeypatch.setattr(gram_ops, "plan",
+                        lambda *a, **k: gram_ops.Plan(pl.tile, 1, -(-d // bk) * bk))
+    whole = gram_cuda(xc, yc)
+    torch.cuda.synchronize()
+    scale = float((x.abs() @ y.abs().T).max())
+    assert float((split - whole).abs().max()) <= 1e-5 * scale
+    _close(whole.cpu().numpy(), (x.double() @ y.double().T).numpy())
+
+
+@pytest.mark.parametrize("n,p,d", [(4449, 4000, 21), (130, 21, 20000), (128, 25, 21)])
+def test_gram_two_launches_give_the_same_bits(cuda, n, p, d):
+    x, y, g = _gram_operands(7, n, p, d)
+    xc, yc, gc = x.to(cuda), y.to(cuda), g.to(cuda)
+    assert torch.equal(gram_cuda(xc, yc), gram_cuda(xc, yc))
+    grads = []
+    for _ in range(2):
+        xr, yr = xc.clone().requires_grad_(True), yc.clone().requires_grad_(True)
+        gram(xr, yr).backward(gc)
+        grads.append((xr.grad, yr.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+
+
+def test_gram_refuses_bad_operands(cuda):
+    x = torch.randn(5, 3, device=cuda)
+    with pytest.raises(TypeError):
+        gram_cuda(x.double(), x.double())
+    with pytest.raises(ValueError):
+        gram_cuda(x, torch.randn(4, 2, device=cuda))
+    with pytest.raises(ValueError):
+        gram_cuda(x, x.cpu())
+
+
+@pytest.mark.parametrize("window", [0, 1, 100, None])
+@pytest.mark.parametrize("ring,slot_order", [(True, False), (True, True), (False, False)])
+@pytest.mark.parametrize("kv_dtype,hd", [(torch.bfloat16, 128), (torch.bfloat16, 40),
+                                         (torch.float32, 64), (torch.bfloat16, 100),
+                                         (torch.float32, 512)])
+def test_decode_attn_windows_and_rings(cuda, window, ring, slot_order, kv_dtype, hd):
+    B, S, KV, G, pos = 3, 1500, 2, 5, 2000
+    q, K, V, kpos = decode_attn_operands(B, S, KV, G, hd, pos=pos, kv_dtype=kv_dtype, ring=ring,
+                                         slot_order=slot_order, seed=hd, device=cuda)
+    got = decode_attn_cuda(q, K, V, kpos, pos, window=window)
+    again = decode_attn_cuda(q, K, V, kpos, torch.tensor(pos, dtype=torch.int32, device=cuda),
+                             window=window)
+    want = decode_attn_plain(q, K, V, kpos, pos, window=window)
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(V.float().abs().max())
+    assert torch.equal(got, again) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= tol
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window is not None:
+        valid &= kpos > pos - window
+    for b in range(B):  # a row with no valid key: the mean of V over the S slots
+        if not bool(valid[b].any()):
+            mean = V[b].float().mean(0)[:, None, :].expand(KV, G, hd)
+            assert float((got[b] - mean).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("kv_dtype,hd", [(torch.bfloat16, 128), (torch.float32, 64)])
+def test_decode_attn_empty_row_and_splits_without_a_valid_slot(cuda, kv_dtype, hd):
+    B, S, KV, G, pos = 4, 6000, 2, 8, 5999
+    q, K, V, kpos = decode_attn_operands(B, S, KV, G, hd, pos=pos, kv_dtype=kv_dtype,
+                                         empty_rows=(1,), seed=3, device=cuda)
+    kpos[2] = -1  # row 2: its valid slots all in the first split
+    kpos[2, :30] = torch.arange(pos - 29, pos + 1, dtype=torch.int32, device=cuda)
+    pl = attn_plan(B, S, KV, G, hd, K.element_size(),
+                   torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert pl.splits > 1 and pl.slots_per_split >= 30
+    got = decode_attn_cuda(q, K, V, kpos, pos)
+    want = decode_attn_plain(q, K, V, kpos, pos)
+    torch.cuda.synchronize()
+    tol = 1e-5 * float(V.float().abs().max())
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= tol
+    mean = V[1].float().mean(0)[:, None, :].expand(KV, G, hd)
+    assert float((got[1] - mean).abs().max()) <= tol
+    assert torch.equal(got, decode_attn_cuda(q, K, V, kpos, pos))
+
+
+def test_decode_attn_refuses_bad_operands_on_the_card(cuda):
+    q, K, V, kpos = decode_attn_operands(2, 64, 2, 3, 16, pos=63, device=cuda)
+    with pytest.raises(ValueError):
+        decode_attn_cuda(q, K[:, :32], V, kpos, 63)  # S differs between K and V
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 1, 1, 520, device=cuda)
+        decode_attn_cuda(big, torch.zeros(1, 4, 1, 520, device=cuda),
+                         torch.zeros(1, 4, 1, 520, device=cuda),
+                         torch.zeros(1, 4, dtype=torch.int32, device=cuda), 3)
+    with pytest.raises(TypeError):
+        decode_attn_cuda(q, K.float(), V, kpos, 63)  # K and V of two types
+
+
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_decode_attn_two_head_chunks_and_misaligned_rows(cuda, misaligned):
+    """G = 12: two chunks of heads on the tensor-core path; K and V starting
+    off 16 bytes take the block kernel, with the same answer."""
+    B, S, KV, G, hd, pos = 2, 900, 2, 12, 64, 850
+    q, K, V, kpos = decode_attn_operands(B, S, KV, G, hd, pos=pos, seed=12, device=cuda)
+    if misaligned:  # the same values, one bf16 element past a 16-byte boundary
+        K = torch.cat([K.new_zeros(1), K.flatten()])[1:].view(B, S, KV, hd)
+        V = torch.cat([V.new_zeros(1), V.flatten()])[1:].view(B, S, KV, hd)
+        assert K.data_ptr() % 16 != 0 and K.is_contiguous()
+    path = attn_plan(B, S, KV, G, hd, 2, torch.cuda.get_device_properties(cuda).multi_processor_count,
+                     aligned=not misaligned).path
+    assert path == ("simt" if misaligned else "mma")
+    got = decode_attn_cuda(q, K, V, kpos, pos, window=300)
+    want = decode_attn_plain(q, K, V, kpos, pos, window=300)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(V.float().abs().max())
+    assert torch.equal(got, decode_attn_cuda(q, K, V, kpos, pos, window=300))
