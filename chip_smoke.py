@@ -17,13 +17,20 @@ into a pass):
    (40 machines x 1000 rows, d = 21, 4449 queries) and the edge layouts
    (R = 24 and R = 100 words, width-0 dims, masked rows, ragged tiles; for
    the epilogue all six fusion forms, ragged t and K, a large K, an expert
-   of weight 0 and variances at their 1e-12 floor; for the fleet epilogue
+   of weight 0 and variances at their 1e-12 floor, the small variant's
+   largest K (32) and one past it, each path's point tile whole and one
+   point past it (t = 32/33 at K = 25, 2048/2049 on the 128-point tensor-
+   core tile, 64/65 at K = 300), and a request-shape call counted as one
+   device activity by ``torch.profiler``; for the fleet epilogue
    all six fusion forms at a fleet flush, a ragged case and serve-sized
    requests, each tenant also against the single-tenant kernel; for
    ``quant_encode`` / ``quant_decode`` bitwise at the kernels bench shape
    (n = 1024, d = 128, Algorithm-1 rates at 4 d bits, max 8), a 4096-edge
    row, a ragged shape with NaN, +-inf, on-edge symbols and rate-0 dims,
-   and bits = 0, decode also at -1 and >= C; ``qgram`` within TOL at
+   and bits = 0, decode also at -1 and >= C; encode also on the tables
+   of ``ENCODE_TABLE_KINDS`` (a decreasing row, a NaN edge, duplicates,
+   -0.0 beside +0.0, +-inf edges) at E = 128 and at E = 4096 with
+   n = 1024, and timed at n = 1024 against a 4096-edge row; ``qgram`` within TOL at
    (1024, 128, 1024) and a ragged batched shape with -1 rows;
    ``decode_attn`` within 1e-5 max|V| at the bench shape B = 8, S = 8192,
    KV = 4, G = 8, hd = 128 with bf16 K/V, a gemma2-2b local layer (G = 2,
@@ -94,6 +101,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet)
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 on the tensor cores (data sheet)
 HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 TOL = 1e-5  # of max(|A| |B|^T): fp32 sums in different orders, no TF32
 U32 = 2.0 ** -24  # fp32 unit roundoff
@@ -144,7 +152,9 @@ def main():
         qgram_packed_plain, qgram_plain,
     )
     from repro_torch.kernels.qgram.ref import decode_gathered
-    from repro_torch.kernels.quant.cases import qgram_operands, quant_operands
+    from repro_torch.kernels.quant.cases import (
+        ENCODE_TABLE_KINDS, encode_operands, qgram_operands, quant_operands,
+    )
     from repro_torch.kernels.quant.ops import (
         build_scaled_tables, decode, decode_cuda, decode_plain, encode, encode_cuda,
         encode_plain,
@@ -361,8 +371,20 @@ def main():
                timed=False, zero_dims=(7,), mask_frac=0.2)
     qgram_case("R=7, width-0 dim", 4, 33, 21, 17, 7, 50, timed=False, zero_dims=(2,))
 
-    def epilogue_case(tag, m, t, K, fuses, reps, **kw):
+    def epi_bound(T, m, t, K, pl):
+        """Each operand read once, the rows written once; the products' 4 K^2
+        flops a point and expert at the rate of the path the plan takes (the
+        mma variant's 3xTF32: three TF32 products each on the tensor cores),
+        the rest's 4 K + 6 in fp32."""
+        nbytes = 4 * T * (m * t * K + 2 * m * K * K + m * K + 2 * t + m + 3 * t)
+        prod, rest = T * m * t * 4 * K * K, T * m * t * (4 * K + 6)
+        rate = TF32_FLOPS / 3 if pl.variant == "mma" else FP32_FLOPS
+        t_b, t_f = nbytes / HBM_BYTES * 1e3, (prod / rate + rest / FP32_FLOPS) * 1e3
+        return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+    def epilogue_case(tag, m, t, K, fuses, reps, timed=True, **kw):
         ops = epilogue_operands(m, t, K, seed=m + t + K, device=dev, **kw)
+        pl = plan(m, t, K, sms)
         rows = []
         for fuse in fuses:
             got = epilogue_cuda(*ops, fuse=fuse)
@@ -373,19 +395,21 @@ def main():
             err = float((got - want).abs().max())
             worst = float(((got - want).abs() / tol_rows).max())
             print(f"[kernel] epilogue      {tag + ' ' + fuse:44s} max_abs_err {err:.3e} "
-                  f"worst err/bound {worst:.3e}", flush=True)
+                  f"worst err/bound {worst:.3e}  plan {pl.variant}/{pl.tt}/{pl.groups}",
+                  flush=True)
             check(bool(torch.isfinite(got).all()), f"epilogue {tag} {fuse}: non-finite output")
             check(torch.equal(got, again), f"epilogue {tag} {fuse}: two launches differ")
             check(worst <= 1.0, f"epilogue {tag} {fuse}: error above epilogue_error_bound")
             row = {"tag": f"{tag} {fuse}", "err": err}
-            row["ms"] = device_ms(lambda: epilogue_cuda(*ops, fuse=fuse), reps)
-            row["plain_ms"] = device_ms(lambda: epilogue_moments_plain(*ops, fuse=fuse), reps)
-            row["library_ms"] = None  # no single PyTorch call computes it
-            nbytes = 4 * (m * t * K + 2 * m * K * K + m * K + 2 * t + m + 3 * t)
-            row["bound_ms"], row["bound_by"] = bound(nbytes, m * t * (4 * K * K + 4 * K + 6))
-            print(f"[time]   epilogue      {tag + ' ' + fuse:44s} kernel {row['ms']:.4f} ms  "
-                  f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.7f} ms "
-                  f"({row['bound_by']})", flush=True)
+            if timed:
+                row["ms"] = device_ms(lambda: epilogue_cuda(*ops, fuse=fuse), reps)
+                row["plain_ms"] = device_ms(lambda: epilogue_moments_plain(*ops, fuse=fuse),
+                                            reps)
+                row["library_ms"] = None  # no single PyTorch call computes it
+                row["bound_ms"], row["bound_by"] = epi_bound(1, m, t, K, pl)
+                print(f"[time]   epilogue      {tag + ' ' + fuse:44s} kernel {row['ms']:.4f} ms  "
+                      f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.7f} ms "
+                      f"({row['bound_by']}, {pl.variant} path)", flush=True)
             results["epilogue"].append(row)
             rows.append(row)
         return rows
@@ -399,10 +423,38 @@ def main():
                   50, floored=(0, 7, 127), lost=(3, 17, 39))
     epilogue_case("ragged + w zeros + floors: m=5 t=37 K=19", 5, 37, 19,
                   EPILOGUE_FUSES, 50, floored=(0, 36), lost=(1,))
+    # the variants' and tiles' edges: the small variant's largest K and one
+    # past it, a point tile of each path whole and one point past it
+    for tag, m_, t_, K_, kind in (
+        ("small-K limit: m=40 t=32 K=32", 40, 32, 32, "serve_cache"),
+        ("one past it (mma): m=40 t=32 K=33", 40, 32, 33, "serve_cache"),
+        ("one past a small tile: m=40 t=33 K=25", 40, 33, 25, "serve_cache"),
+        ("mma 128-point tiles whole: m=40 t=2048 K=25", 40, 2048, 25, "serve_cache"),
+        ("one past: m=40 t=2049 K=25", 40, 2049, 25, "serve_cache"),
+        ("large-K tiles whole: m=5 t=64 K=300", 5, 64, 300, "generic"),
+        ("one past: m=5 t=65 K=300", 5, 65, 300, "generic"),
+    ):
+        epilogue_case(tag, m_, t_, K_, ("kl", "rbcm"), 0, timed=False, kind=kind)
+    check(plan(40, 32, 32).variant == "small" and plan(40, 32, 33).variant == "mma"
+          and plan(40, 2048, 25) == ("mma", 128, plan(40, 2048, 25).groups),
+          "epilogue: the boundary cases did not take the variants they test")
+    # a broadcast request is one kernel launch: the profiler's device events
+    epi_ops = epilogue_operands(40, 128, 25, seed=193, device=dev)
+    epilogue_cuda(*epi_ops, fuse="kl")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        epilogue_cuda(*epi_ops, fuse="kl")
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[kernel] epilogue      request shape: {len(on_card)} device activity in one call: "
+          f"{[n[:60] for n in on_card]}", flush=True)
+    check(len(on_card) == 1, f"epilogue: a request-shape call ran {len(on_card)} device "
+          "activities, not one kernel launch")
 
     def fleet_case(tag, T, m, t, K, fuses, reps, **kw):
         ops = epilogue_fleet_operands(T, m, t, K, seed=T + m + t + K, device=dev, **kw)
-        same_plan = plan_fleet(T, m, t, K) == plan(m, t, K)
+        pl = plan_fleet(T, m, t, K, sms)
+        same_plan = pl == plan(m, t, K, sms)
         rows = []
         for fuse in fuses:
             got = epilogue_fleet_cuda(*ops, fuse=fuse)
@@ -432,11 +484,10 @@ def main():
             row["plain_ms"] = device_ms(lambda: epilogue_moments_fleet_plain(*ops, fuse=fuse),
                                         reps)
             row["library_ms"] = None  # no single PyTorch call computes it
-            nbytes = 4 * T * (m * t * K + 2 * m * K * K + m * K + 2 * t + m + 3 * t)
-            row["bound_ms"], row["bound_by"] = bound(nbytes, T * m * t * (4 * K * K + 4 * K + 6))
+            row["bound_ms"], row["bound_by"] = epi_bound(T, m, t, K, pl)
             print(f"[time]   epilogue_fleet {tag + ' ' + fuse:43s} kernel {row['ms']:.4f} ms  "
                   f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.7f} ms "
-                  f"({row['bound_by']})", flush=True)
+                  f"({row['bound_by']}, {pl.variant}/{pl.tt}/{pl.groups})", flush=True)
             results["epilogue_fleet"].append(row)
             rows.append(row)
         return rows
@@ -524,6 +575,22 @@ def main():
     quant_case("ragged n=37 d=13: NaN/+-inf/on-edge, rate-0", 37, 13, 30, 12,
                zero_dims=(2, 7), specials=True)
     quant_case("bits=0: n=9 d=5, E=128 of +inf", 9, 5, 0, 8, specials=True)
+    quant_case("bench: n=1024 d=128, a 4096-edge row", 1024, 128, 512, 12, reps=200,
+               dominant=True)
+    # tables the binary search may not take (a decreasing row, a NaN edge)
+    # and ones it must count right (duplicates, -0.0 beside +0.0, +-inf),
+    # at E = 128 and 4096 with n = 1024: bitwise, the same bits twice
+    for kind in ENCODE_TABLE_KINDS:
+        for n_, d_, E_ in ((37, 13, 128), (1024, 8, 4096)):
+            x_, e_ = encode_operands(n_, d_, E_, kind, seed=n_ + E_, device=dev)
+            got_, again_ = encode_cuda(x_, e_), encode_cuda(x_, e_)
+            same_ = torch.equal(got_, encode_plain(x_, e_))
+            print(f"[kernel] quant_encode  {kind + f' table: n={n_} d={d_} E={E_}':44s} "
+                  f"bitwise {same_}  same bits twice {torch.equal(got_, again_)}", flush=True)
+            check(same_ and torch.equal(got_, again_),
+                  f"quant_encode {kind} n={n_} E={E_}: differs from the plain version or "
+                  "between launches")
+            results["quant_encode"].append({"tag": f"{kind} E={E_}", "err": 0.0})
 
     # the unpacked qgram: within TOL x max(|X̂| |y|^T), as gram
     def qgram_bound(codes, cents, y):

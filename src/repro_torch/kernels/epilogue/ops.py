@@ -10,13 +10,16 @@ Hopper kernel (``csrc/epilogue.cu``) for CUDA tensors and through
 is the same with a leading tenant axis — per-tenant rows (T, 3, t) in one
 launch of ``csrc/epilogue_fleet.cu`` (family ``"epilogue_fleet"``, its own
 launch count).  The kernels mask ragged t and K themselves, so nothing is
-padded here.  :func:`plan` / :func:`plan_fleet` pick the test-point tile and
-expert split for a shape.
+padded here.  :func:`plan` / :func:`plan_fleet` pick, from the shape, the
+kernel variant (CUDA-core fp32 at small K, 3xTF32 tensor-core products at
+large K), the test-point tile and the expert groups, which the launch sums
+in group order itself.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -25,59 +28,98 @@ from .ref import EPILOGUE_FUSES, epilogue_moments_fleet_plain, epilogue_moments_
 
 __all__ = ["epilogue_moments", "epilogue_cuda", "epilogue_moments_plain",
            "epilogue_moments_fleet", "epilogue_fleet_cuda", "epilogue_moments_fleet_plain",
-           "plan", "plan_fleet", "fleet_epilogue_block", "FAMILY", "FLEET_FAMILY"]
+           "Plan", "plan", "plan_fleet", "smem_bytes", "fleet_epilogue_block", "SMALL_K", "MMA_POINTS",
+           "VARIANTS", "FAMILY", "FLEET_FAMILY"]
 
-_SLOTS = 512  # outputs per chunk of a 256-thread block (TT x KC)
-_JC = 32  # reduction chunk
-_SMEM = 232_448  # dynamic shared memory one block may use on Hopper
-_BLOCKS_PER_SM = 8  # 256-thread blocks: a full SM's 2048 threads
+SMALL_K = 32  # the largest K of the small (CUDA-core) variant
+MMA_POINTS = 2048  # points (T * t) from which K <= SMALL_K takes the mma variant
+_JS, _NST = 36, 3  # the mma variant's padded chunk row and chunk buffers (epilogue_body.cuh)
+_SMEM = 232_448  # shared memory one block may use on Hopper
+_STATIC = 16  # the kernels' static shared memory (the last-block flag)
+_BLOCKS_PER_SM = 8  # blocks the expert groups aim for on each SM
+VARIANTS = ("small", "mma")
+
+
+class Plan(NamedTuple):
+    """How ``csrc/epilogue_body.cuh`` runs a shape: ``variant`` "small"
+    (four threads a point, CUDA-core fp32, K <= :data:`SMALL_K`; tt 16 or
+    32) or "mma" (3xTF32 tensor-core products; tt 128 at K <= SMALL_K, else
+    32 or 16), ``tt`` test points a block, ``groups``
+    expert groups of ceil(m / groups) consecutive experts (summed in group
+    order inside the launch)."""
+
+    variant: str
+    tt: int
+    groups: int
+
 
 _FNS: dict = {}
+_COUNTERS: dict = {}
 
 
 def _fn(lib: str, symbol: str, n_ints: int):
     """The C entry ``symbol`` of kernel library ``lib`` (built on first
-    use): ``n_ints`` int arguments, then ten pointers (seven operands, out,
-    scratch, stream)."""
+    use): ``n_ints`` int arguments, then eleven pointers (seven operands,
+    out, scratch, counters, stream)."""
     if symbol not in _FNS:
         fn = getattr(build.library(lib), symbol)
-        fn.argtypes = [ctypes.c_int] * n_ints + [ctypes.c_void_p] * 10
+        fn.argtypes = [ctypes.c_int] * n_ints + [ctypes.c_void_p] * 11
         fn.restype = ctypes.c_int
         _FNS[symbol] = fn
     return _FNS[symbol]
 
 
-def smem_bytes(tt: int, K: int) -> int:
-    """Shared memory of one block at tile ``tt`` (as
-    ``csrc/epilogue_body.cuh`` lays it out: Bt, the staged chunk, the G
-    chunk, the quad terms)."""
-    kc = _SLOTS // tt
-    return 4 * (tt * (K | 1) + kc * (_JC + 1) + tt * (_JC + 1) + tt * (kc + 1))
-
-
-def plan_fleet(T: int, m: int, t: int, K: int, sms: int = 132) -> tuple[int, int]:
-    """(tt, groups) for a launch over T tenants: the largest test-point
-    tile (16 down to 1) whose shared memory fits, then enough expert groups
-    that the grid's T * ceil(t / tt) test tiles reach ~8 blocks on each of
-    the card's ``sms`` multiprocessors (each group ceil(m / groups)
-    consecutive experts of every tenant).  Raises for a K no tile fits
-    (K > ~40,000)."""
-    for tt in (16, 8, 4, 2, 1):
-        if smem_bytes(tt, K) <= _SMEM:
-            break
+def smem_bytes(variant: str, tt: int, K: int) -> int:
+    """Shared memory of one block (``csrc/epilogue_body.cuh``'s layout plus
+    its static flag).  small: two stage buffers of Ainv and P (KP rows of
+    KS floats, KP = K rounded up to 4, KS / 4 odd), walpha + w and the
+    tile's G rows; mma: Bt (tt x (kb + 4), kb = K rounded up to 64), two
+    chunk buffers (64 + tt rows of 36), walpha + w and the column groups'
+    quad and mu partials."""
+    if variant == "small":
+        kp = -(-K // 4) * 4
+        ks = kp if (kp // 4) % 2 else kp + 4
+        floats = 2 * (2 * kp * ks + kp + 4 + -(-tt * K // 4) * 4)
+    elif variant == "mma":
+        nbc = 32 if K <= SMALL_K else 64  # the n-block
+        kb = -(-K // nbc) * nbc
+        floats = (tt * (kb + 4) + _NST * (nbc + tt) * _JS + 2 * (kb + 4)
+                  + 2 * (128 // tt) * tt)
     else:
-        raise ValueError(
-            f"epilogue kernel: K={K} does not fit in shared memory even one "
-            "test point at a time"
-        )
+        raise ValueError(f"epilogue kernel: unknown variant {variant!r}")
+    return 4 * floats + _STATIC
+
+
+def plan_fleet(T: int, m: int, t: int, K: int, sms: int = 132) -> Plan:
+    """The plan of a launch over T tenants.  K <= :data:`SMALL_K`: the
+    small variant, a tile of 32 points (16 when t <= 16), unless the launch
+    holds :data:`MMA_POINTS` points or more (T * t), where the mma variant's
+    tile of 128 points is faster (measured; PERF.md section 6).  Larger K:
+    the mma variant, a tile of 32 points, 16 once 32 no longer fit shared
+    memory (K > 1344), so the tile shrinks as K grows.  Then enough expert
+    groups that the grid's T * ceil(t / tt) tiles reach ~8 blocks on each
+    of the card's ``sms`` multiprocessors.  Raises for a K no tile fits
+    (K > 2688)."""
+    if K <= SMALL_K:
+        variant, tt = ("mma", 128) if T * t >= MMA_POINTS else ("small", 16 if t <= 16 else 32)
+    else:
+        variant = "mma"
+        for tt in (32, 16):
+            if smem_bytes(variant, tt, K) <= _SMEM:
+                break
+        else:
+            raise ValueError(
+                f"epilogue kernel: K={K} does not fit in shared memory even 16 test "
+                "points at a time"
+            )
     tiles = T * math.ceil(t / tt)
     groups = min(m, max(1, math.ceil(_BLOCKS_PER_SM * sms / tiles)))
     per = math.ceil(m / groups)
-    return tt, math.ceil(m / per)
+    return Plan(variant, tt, math.ceil(m / per))
 
 
-def plan(m: int, t: int, K: int, sms: int = 132) -> tuple[int, int]:
-    """(tt, groups) of a single-tenant launch: :func:`plan_fleet` at T = 1."""
+def plan(m: int, t: int, K: int, sms: int = 132) -> Plan:
+    """The plan of a single-tenant launch: :func:`plan_fleet` at T = 1."""
     return plan_fleet(1, m, t, K, sms)
 
 
@@ -85,7 +127,18 @@ def fleet_epilogue_block(T: int, m: int, t: int, K: int, sms: int = 132) -> int:
     """The t-tile the fleet kernel plans for this launch shape (the
     reference's autotuned tile; the port's persistent autotune cache is
     slice 8)."""
-    return plan_fleet(T, m, t, K, sms)[0]
+    return plan_fleet(T, m, t, K, sms).tt
+
+
+def _counters(dev, n: int) -> torch.Tensor:
+    """At least ``n`` tile counters on ``dev``: zeros that every launch
+    leaves zero (the last block of a tile resets its own), kept for the
+    process so that a launch allocates none.  Launches on one device are
+    ordered by its stream, as the port's callers issue them."""
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+    return buf
 
 
 def _need(cond: bool, msg: str):
@@ -118,12 +171,22 @@ def _check(fuse, ops: dict, lead: tuple) -> None:
         _need(a.is_contiguous(), f"{name} must be contiguous")
 
 
-def _launch(fn, fuse, ints, ops, out, scratch, name):
+def _launch(fn, fuse, shape, pl: Plan, ops, out, name):
+    """Launch plan ``pl`` over ``shape`` ((m, t, K) or (T, m, t, K)): the
+    group partials' scratch and the tile counters when it splits the
+    experts."""
     dev = out.device
+    T, t = (1, shape[1]) if len(shape) == 3 else (shape[0], shape[2])
+    scratch = counters = None
+    if pl.groups > 1:
+        scratch = torch.empty((pl.groups,) + out.shape, dtype=torch.float32, device=dev)
+        counters = _counters(dev, T * math.ceil(t / pl.tt))
+    ints = (*shape, VARIANTS.index(pl.variant), pl.tt, pl.groups)
     with torch.cuda.device(dev):
         err = fn(
             EPILOGUE_FUSES.index(fuse), *ints, *(a.data_ptr() for a in ops),
             out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            None if counters is None else counters.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -148,11 +211,8 @@ def epilogue_cuda(G, Ainv, P, walpha, gss, prior, w, *, fuse):
         return out
     if m == 0 or K == 0:
         raise ValueError(f"epilogue kernel: needs m > 0 experts and K > 0, got m={m}, K={K}")
-    tt, groups = plan(m, t, K, _sms(G.device))
-    scratch = (torch.empty((groups, 3, t), dtype=torch.float32, device=G.device)
-               if groups > 1 else None)
-    _launch(_fn("epilogue", "repro_epilogue_f32", 6), fuse, (m, t, K, tt, groups),
-            ops.values(), out, scratch, "epilogue")
+    _launch(_fn("epilogue", "repro_epilogue_f32", 7), fuse, (m, t, K),
+            plan(m, t, K, _sms(G.device)), ops.values(), out, "epilogue")
     FAMILY.launches += 1
     return out
 
@@ -183,11 +243,8 @@ def epilogue_fleet_cuda(G, Ainv, P, walpha, gss, prior, w, *, fuse):
     if m == 0 or K == 0:
         raise ValueError(f"epilogue kernel: needs m > 0 experts and K > 0, got m={m}, K={K}")
     _need(T <= 65535, f"at most 65535 tenants a launch, got T={T}")
-    tt, groups = plan_fleet(T, m, t, K, _sms(G.device))
-    scratch = (torch.empty((groups, T, 3, t), dtype=torch.float32, device=G.device)
-               if groups > 1 else None)
-    _launch(_fn("epilogue_fleet", "repro_epilogue_fleet_f32", 7), fuse,
-            (T, m, t, K, tt, groups), ops.values(), out, scratch, "epilogue_fleet")
+    _launch(_fn("epilogue_fleet", "repro_epilogue_fleet_f32", 8), fuse, (T, m, t, K),
+            plan_fleet(T, m, t, K, _sms(G.device)), ops.values(), out, "epilogue_fleet")
     FLEET_FAMILY.launches += 1
     return out
 

@@ -12,6 +12,10 @@ edges); ``dominant`` multiplies dimension 0's variance by 1e4, so that it
 takes up to ``max_bits`` bits (a 4096-entry row at max_bits 12).
 ``specials`` plants NaN, +inf, -inf, 0 and symbols exactly on an
 edge in the first rows.
+
+``encode_operands`` makes the tables the encode kernel must count right
+whether or not it may search them: rows that ascend (with +inf pads and a
+rate-0 row of +inf), and rows that do not (``ENCODE_TABLE_KINDS``).
 """
 from __future__ import annotations
 
@@ -21,7 +25,14 @@ import torch
 from ...core import quantizers as Q
 from .ops import build_scaled_tables
 
-__all__ = ["quant_operands", "qgram_operands"]
+__all__ = ["quant_operands", "qgram_operands", "encode_operands", "ENCODE_TABLE_KINDS"]
+
+# ascending: sorted rows; unsorted: every third row shuffled; nan_edge: a NaN
+# edge in every third row; duplicates: runs of equal edges; signed_zeros:
+# -0.0 and +0.0 edges side by side in both orders; infinite: -inf edges
+# first and +inf edges among the live ones, still ascending
+ENCODE_TABLE_KINDS = ("ascending", "unsorted", "nan_edge", "duplicates", "signed_zeros",
+                      "infinite")
 
 
 def quant_operands(n, d, total_bits, *, max_bits=8, seed=0, zero_dims=(),
@@ -68,3 +79,42 @@ def qgram_operands(m, n, d, p, total_bits, *, max_bits=8, seed=0, pad_rows=0,
     y = rng.normal(size=(p, d) if shared_y else (m, p, d)).astype(np.float32)
     to = lambda a: torch.as_tensor(a).to(device)
     return to(codes), to(cents), to(y)
+
+
+def encode_operands(n, d, E, kind="ascending", *, seed=0, device=None):
+    """(x (n, d), edges (d, E)) fp32 torch tensors on ``device``: a
+    ``kind`` of ``ENCODE_TABLE_KINDS``.  Every row holds a live prefix of
+    N(0, 1) edges and +inf pads (a seeded quarter to all of the row live),
+    row 0 is all +inf (rate 0); symbols are N(0, 1.5^2), with NaN, +inf,
+    -inf, +0.0, -0.0 and symbols exactly on an edge in the first rows."""
+    if kind not in ENCODE_TABLE_KINDS:
+        raise ValueError(f"unknown table kind {kind!r}: known are {ENCODE_TABLE_KINDS}")
+    rng = np.random.default_rng(seed)
+    edges = np.full((d, E), np.inf, np.float32)
+    for j in range(1, d):
+        live = int(rng.integers(max(1, E // 4), E + 1))
+        row = np.sort(rng.normal(size=live)).astype(np.float32)
+        if kind == "duplicates":
+            row = np.round(row * 8) / 8  # runs of equal edges, still ascending
+        elif kind == "signed_zeros" and live >= 4:
+            at = int(np.searchsorted(row, 0.0))
+            row = np.concatenate([row[:at], [-0.0, 0.0, 0.0, -0.0], row[at:]])[:live]
+        elif kind == "unsorted" and j % 3 == 1:
+            row = rng.permutation(row)
+        elif kind == "nan_edge" and j % 3 == 1:
+            row[live // 2] = np.nan
+        elif kind == "infinite" and live >= 4:
+            row[: live // 4] = -np.inf
+            row[-(live // 4):] = np.inf
+        edges[j, :live] = row
+    x = (1.5 * rng.normal(size=(n, d))).astype(np.float32)
+    specials = [np.nan, np.inf, -np.inf, 0.0, -0.0]
+    for r, v in enumerate(specials[:n]):
+        x[r] = v
+    if n > len(specials):
+        for j in range(d):  # exactly on an edge: the strict count leaves it out
+            live = edges[j][np.isfinite(edges[j])]
+            if live.size:
+                x[len(specials), j] = live[int(rng.integers(live.size))]
+    to = lambda a: torch.from_numpy(a).to(device)
+    return to(x), to(edges)

@@ -3,7 +3,10 @@
 
 :func:`build_scaled_tables` makes a machine's (d, E) edge and (d, C)
 centroid tables from its (sigma, rates), exactly as the reference does.
-:func:`encode` counts, for every symbol, the scaled edges below it, and
+:func:`encode` counts, for every symbol, the scaled edges below it (the
+kernel stages each row in chunks of :data:`ENCODE_CHUNK` edges and counts a
+chunk whose edges do not decrease by a binary search, any other chunk in
+full: the same count either way), and
 :func:`decode` looks each code's centroid up: through the hand-written
 Hopper kernels (``csrc/quant_encode.cu``, ``csrc/quant_decode.cu``;
 families ``"quant_encode"`` and ``"quant_decode"``) for CUDA tensors, and
@@ -24,9 +27,10 @@ from .ref import decode_plain, encode_plain
 
 __all__ = ["build_scaled_tables", "encode", "decode", "encode_cuda", "decode_cuda",
            "encode_plain", "decode_plain", "ENCODE_FAMILY", "DECODE_FAMILY",
-           "DEFAULT_ECHUNK"]
+           "DEFAULT_ECHUNK", "ENCODE_CHUNK"]
 
 DEFAULT_ECHUNK = 128  # the reference's table padding unit
+ENCODE_CHUNK = 8192  # edges the encode kernel stages at a time (csrc/quant_encode.cu CHUNK)
 
 _FNS: dict = {}
 

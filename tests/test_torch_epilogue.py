@@ -29,7 +29,7 @@ from repro.kernels.epilogue.ref import epilogue_moments_ref  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.epilogue.cases import epilogue_operands  # noqa: E402
 from repro_torch.kernels.epilogue.ops import (  # noqa: E402
-    epilogue_cuda, epilogue_moments, plan, smem_bytes,
+    Plan, epilogue_cuda, epilogue_moments, plan, smem_bytes,
 )
 from repro_torch.kernels.epilogue.ref import (  # noqa: E402
     EPILOGUE_FUSES, epilogue_error_bound, epilogue_moments_plain,
@@ -122,19 +122,19 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
 
 
 @pytest.mark.parametrize("m,t,K,want", [
-    (40, 128, 25, (16, 40)),   # a broadcast request: one expert per block
-    (40, 4449, 25, (16, 4)),   # the whole test set: 4 groups of 10 experts
-    (5, 37, 19, (16, 5)),
-    (40, 130, 300, (16, 40)),
-    (1, 1, 1, (16, 1)),
+    (40, 128, 25, Plan("small", 32, 40)),  # a broadcast request: one expert per block
+    (40, 4449, 25, Plan("mma", 128, 20)),  # the whole test set: 20 groups of 2 experts
+    (5, 37, 19, Plan("small", 32, 5)),
+    (40, 130, 300, Plan("mma", 32, 40)),
+    (1, 1, 1, Plan("small", 16, 1)),
 ])
 def test_plan_tiles_and_expert_groups(m, t, K, want):
     assert plan(m, t, K) == want
 
 
 def test_plan_shrinks_the_tile_for_large_K_and_refuses_what_cannot_fit():
-    tt, _ = plan(2, 10, 20_000)
-    assert tt < 16 and smem_bytes(tt, 20_000) <= 232_448
-    assert plan(2, 10, 40_000)[0] == 1
+    pl = plan(2, 10, 2000)
+    assert pl.tt < plan(2, 10, 300).tt and smem_bytes(pl.variant, pl.tt, 2000) <= 232_448
+    assert plan(2, 10, 2688).tt == 16
     with pytest.raises(ValueError, match="does not fit"):
-        plan(2, 10, 50_000)
+        plan(2, 10, 3000)

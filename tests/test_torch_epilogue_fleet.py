@@ -29,7 +29,7 @@ from repro.kernels.epilogue.ref import epilogue_moments_fleet_ref  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.epilogue.cases import epilogue_fleet_operands  # noqa: E402
 from repro_torch.kernels.epilogue.ops import (  # noqa: E402
-    epilogue_fleet_cuda, epilogue_moments_fleet, fleet_epilogue_block, plan, plan_fleet,
+    Plan, epilogue_fleet_cuda, epilogue_moments_fleet, fleet_epilogue_block, plan, plan_fleet,
 )
 from repro_torch.kernels.epilogue.ref import (  # noqa: E402
     EPILOGUE_FUSES, epilogue_error_bound, epilogue_fleet_error_bound,
@@ -134,14 +134,14 @@ def test_kernel_wrapper_refuses_what_it_does_not_take():
 
 
 @pytest.mark.parametrize("T_,m,t,K_,want", [
-    (16, 40, 16, 25, (16, 40)),   # a fleet flush: one expert per block, 640 blocks
-    (8, 40, 128, 25, (16, 14)),   # serve-sized requests: 14 groups of 3 experts
-    (5, 5, 37, 19, (16, 5)),
-    (64, 40, 128, 25, (16, 3)),   # 512 test tiles: 3 groups of 14 experts
-    (1, 40, 4449, 25, (16, 4)),   # one tenant plans as the single-tenant kernel
+    (16, 40, 16, 25, Plan("small", 16, 40)),  # a fleet flush: one expert per block, 640 blocks
+    (8, 40, 128, 25, Plan("small", 32, 20)),  # serve-sized requests: 20 groups of 2 experts
+    (5, 5, 37, 19, Plan("small", 32, 5)),
+    (64, 40, 128, 25, Plan("mma", 128, 14)),  # 64 test tiles: 14 groups of 3 experts
+    (1, 40, 4449, 25, Plan("mma", 128, 20)),  # one tenant plans as the single-tenant kernel
 ])
 def test_plan_fleet_tiles_and_expert_groups(T_, m, t, K_, want):
     assert plan_fleet(T_, m, t, K_) == want
-    assert fleet_epilogue_block(T_, m, t, K_) == want[0]
+    assert fleet_epilogue_block(T_, m, t, K_) == want.tt
     if T_ == 1:
         assert plan(m, t, K_) == want

@@ -504,3 +504,66 @@ def test_decode_attn_two_head_chunks_and_misaligned_rows(cuda, misaligned):
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * float(V.float().abs().max())
     assert torch.equal(got, decode_attn_cuda(q, K, V, kpos, pos, window=300))
+
+
+# ---- quant_encode's search and count, epilogue variants and tile edges ------------
+
+from repro_torch.kernels.epilogue.ops import plan as epi_plan  # noqa: E402
+from repro_torch.kernels.epilogue.ops import plan_fleet as epi_plan_fleet  # noqa: E402
+from repro_torch.kernels.quant.cases import ENCODE_TABLE_KINDS, encode_operands  # noqa: E402
+
+
+@pytest.mark.parametrize("kind", ENCODE_TABLE_KINDS)
+@pytest.mark.parametrize("n,d,E", [(37, 13, 128), (300, 3, 130), (1024, 8, 4096),
+                                   (5, 2, 8192 + 5)])
+def test_quant_encode_adversarial_tables_bitwise(cuda, kind, n, d, E):
+    # ascending rows take the binary search, the others the full count:
+    # the same codes as the plain version either way, and on two launches
+    x, edges = encode_operands(n, d, E, kind, seed=n + E, device=cuda)
+    got, again = encode_cuda(x, edges), encode_cuda(x, edges)
+    torch.cuda.synchronize()
+    assert torch.equal(got, encode_plain(x, edges))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m,t,K,kind", [
+    (40, 32, 32, "serve_cache"),   # the small variant's largest K
+    (40, 32, 33, "serve_cache"),   # one past it: the tensor-core variant
+    (40, 33, 25, "serve_cache"),   # one past a small tile of 32 points
+    (3, 2048, 25, "serve_cache"),  # the tensor-core tile of 128 at small K, 16 whole tiles
+    (3, 2049, 25, "serve_cache"),  # one past it
+    (5, 64, 300, "generic"),       # large K, two whole tiles of 32
+    (5, 65, 300, "generic"),       # one past
+    (2, 20, 1345, "generic"),      # past the 32-point tile's shared memory: 16 points
+])
+@pytest.mark.parametrize("fuse", ["kl", "rbcm", "none"])
+def test_epilogue_variants_and_tile_edges(cuda, m, t, K, kind, fuse):
+    ops = epilogue_operands(m, t, K, seed=m + t + K, kind=kind, device=cuda)
+    got, again = epilogue_cuda(*ops, fuse=fuse), epilogue_cuda(*ops, fuse=fuse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # the group sum in order: the same bits every run
+    want = epilogue_moments_plain(*ops, fuse=fuse)
+    bound = epilogue_error_bound(*ops, fuse=fuse)
+    assert bool(torch.isfinite(got).all())
+    excess = float(((got - want).abs() - bound).max())
+    assert excess <= 0, (epi_plan(m, t, K), excess)
+
+
+@pytest.mark.parametrize("T,m,t,K,kind", [
+    (2, 5, 33, 19, "serve_cache"),   # small variant, two tiles a tenant
+    (3, 3, 65, 300, "generic"),      # tensor-core variant at large K
+    (2, 4, 1100, 25, "serve_cache"),  # 2200 points: the fleet takes the 128-point tile,
+])                                    # each tenant alone the small variant
+def test_epilogue_fleet_tenant_against_single(cuda, T, m, t, K, kind):
+    ops = epilogue_fleet_operands(T, m, t, K, seed=T + m + t + K, kind=kind, device=cuda)
+    got, again = epilogue_fleet_cuda(*ops, fuse="kl"), epilogue_fleet_cuda(*ops, fuse="kl")
+    single = torch.stack([epilogue_cuda(*(a[n] for a in ops), fuse="kl") for n in range(T)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    bound = epilogue_fleet_error_bound(*ops, fuse="kl")
+    want = epilogue_moments_fleet_plain(*ops, fuse="kl")
+    assert float(((got - want).abs() - bound).max()) <= 0
+    if epi_plan_fleet(T, m, t, K) == epi_plan(m, t, K):
+        assert torch.equal(got, single)  # one design: the same bits where the plans agree
+    else:
+        assert float(((got - single).abs() - 2 * bound).max()) <= 0

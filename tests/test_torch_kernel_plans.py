@@ -2,7 +2,11 @@
 
 ``gram.plan`` picks ``csrc/gram.cu``'s tile and its split of K from the
 shape alone; ``decode_attn.plan`` picks the kernel and cuts S into its
-ranges.  Both are plain Python: these tests hold what the kernels rely on
+ranges; ``epilogue.plan`` picks the variant, the point tile and the expert
+groups (every tile and expert covered once, the staged bytes within a
+block's 232,448).  ``quant_encode``'s rule (search a chunk whose edges do
+not decrease, count any other) is modeled in numpy and held bitwise against
+the plain version and the reference's ``encode_ref`` on adversarial tables.  Both are plain Python: these tests hold what the kernels rely on
 (every split non-empty, together covering the reduction exactly, a whole
 number of k-slabs or 128-slot units a split) and the shapes the paths give them
 (the GP request and fit products stay one launch of one tile; the long-K
@@ -10,14 +14,25 @@ backward products take a narrow tile and a split).
 """
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.quant.ref import encode_ref  # noqa: E402
 
 from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
     plan as attn_plan, warp_smem,
 )
+from repro_torch.kernels.epilogue.ops import (  # noqa: E402
+    MMA_POINTS, SMALL_K, plan as epi_plan, plan_fleet as epi_plan_fleet, smem_bytes as epi_smem,
+)
 from repro_torch.kernels.gram.ops import TILES, Plan, plan as gram_plan  # noqa: E402
+from repro_torch.kernels.quant.cases import (  # noqa: E402
+    ENCODE_TABLE_KINDS, encode_operands, quant_operands,
+)
+from repro_torch.kernels.quant.ops import ENCODE_CHUNK, encode_plain  # noqa: E402
 
 GRAM_SHAPES = [  # (n, p, d): output n x p, K = d
     (128, 25, 21),      # a GP request: 128 queries x 25 center points
@@ -152,3 +167,123 @@ def test_decode_attn_warp_kernel_fits_shared_memory(hd, q_terms):
     # an H100 SM gives, so plan()'s blocks-an-SM count is at least one
     assert warp_smem(hd, q_terms) <= 227 * 1024
     assert warp_smem(hd, 1) < warp_smem(hd, 3)
+
+
+# ---- the epilogue's plan (csrc/epilogue_body.cuh) ---------------------------------
+
+EPI_SHAPES = [  # (T, m, t, K)
+    (1, 40, 128, 25),    # a broadcast request at Fig. 6
+    (1, 40, 4449, 25),   # the whole SARCOS test set
+    (1, 40, 130, 300),   # large K
+    (16, 40, 16, 25),    # a fleet flush
+    (8, 40, 128, 25),    # serve-sized fleet requests
+    (1, 5, 37, 19),
+    (1, 40, 32, 32),     # the small variant's largest K
+    (1, 40, 32, 33),     # one past it
+    (1, 40, 2048, 25),   # the mma tile of 128 points, exactly 16 tiles
+    (1, 40, 2049, 25),   # one past a tile
+    (3, 3, 65, 300),
+    (1, 2, 10, 1344),    # the largest K at a tile of 32 points
+    (1, 2, 10, 1345),    # one past: 16 points
+    (1, 2, 10, 2688),    # the largest K the plan takes
+    (1, 1, 1, 1),
+    (64, 40, 128, 25),
+    (1000, 3, 7, 10),
+]
+
+
+@pytest.mark.parametrize("T,m,t,K", EPI_SHAPES)
+def test_epilogue_plan_covers_every_tile_and_expert_once(T, m, t, K):
+    pl = epi_plan_fleet(T, m, t, K)
+    tiles = [(x * pl.tt, min(t, (x + 1) * pl.tt)) for x in range(math.ceil(t / pl.tt))]
+    assert all(lo < hi for lo, hi in tiles) and tiles[-1][1] == t
+    per = math.ceil(m / pl.groups)
+    groups = [range(g * per, min(m, (g + 1) * per)) for g in range(pl.groups)]
+    assert all(len(r) > 0 for r in groups)  # no group without an expert
+    seen = [e for r in groups for e in r]
+    assert seen == list(range(m))  # each expert in exactly one group, in order
+
+
+@pytest.mark.parametrize("T,m,t,K", EPI_SHAPES)
+def test_epilogue_staged_bytes_fit_and_grid_within_limits(T, m, t, K):
+    pl = epi_plan_fleet(T, m, t, K)
+    assert epi_smem(pl.variant, pl.tt, K) <= 232_448
+    assert math.ceil(t / pl.tt) < 2**31 and pl.groups <= 65535 and T <= 65535
+    threads = 4 * pl.tt if pl.variant == "small" else 256
+    assert threads <= 1024
+
+
+@pytest.mark.parametrize("T,m,t,K", EPI_SHAPES)
+def test_epilogue_variant_follows_k(T, m, t, K):
+    pl = epi_plan_fleet(T, m, t, K)
+    if K > SMALL_K:
+        assert pl.variant == "mma" and pl.tt in (16, 32)
+    elif T * t >= MMA_POINTS:
+        assert pl == (("mma", 128) + (pl.groups,))
+    else:
+        assert pl.variant == "small" and pl.tt == (16 if t <= 16 else 32)
+
+
+@pytest.mark.parametrize("T,m,t,K", EPI_SHAPES)
+def test_epilogue_plan_fleet_at_one_tenant_is_plan(T, m, t, K):
+    assert epi_plan_fleet(1, m, t, K) == epi_plan(m, t, K)
+    assert epi_plan(m, t, K, sms=132) == epi_plan(m, t, K)  # a function of its arguments
+
+
+def test_epilogue_tile_shrinks_as_k_grows_and_a_k_past_the_last_is_refused():
+    tts = [epi_plan(2, 10, K).tt for K in (33, 300, 1344, 1345, 2688)]
+    assert tts == sorted(tts, reverse=True) and tts[0] > tts[-1]
+    with pytest.raises(ValueError, match="does not fit"):
+        epi_plan(2, 10, 2689)
+
+
+# ---- quant_encode's rule (csrc/quant_encode.cu), modeled in numpy ----------------
+
+def encode_model(x, edges):
+    """The kernel's rule: each row in chunks of ENCODE_CHUNK edges; a chunk
+    whose edges do not decrease (a <= b for each adjacent pair: a NaN fails)
+    is counted by the kernel's branchless lower-bound search, any other in
+    full.  Returns the codes and, per row, whether every chunk was searched."""
+    n, d = x.shape
+    codes = np.zeros((n, d), np.int32)
+    searched = np.ones(d, bool)
+    for j in range(d):
+        for c0 in range(0, edges.shape[1], ENCODE_CHUNK):
+            s = edges[j, c0:c0 + ENCODE_CHUNK]
+            if bool(np.all(s[:-1] <= s[1:])):
+                for i in range(n):
+                    base, length = 0, s.size
+                    while length > 1:
+                        half = length >> 1
+                        base = base + half if s[base + half] < x[i, j] else base
+                        length -= half
+                    codes[i, j] += base + int(s[base] < x[i, j])
+            else:
+                searched[j] = False
+                codes[:, j] += (s[None, :] < x[:, j, None]).sum(1).astype(np.int32)
+    return codes, searched
+
+
+@pytest.mark.parametrize("kind", ENCODE_TABLE_KINDS)
+@pytest.mark.parametrize("E", [128, 129, 1000, 4096, ENCODE_CHUNK + 5])
+def test_encode_rule_matches_plain_and_reference_bitwise(kind, E):
+    n, d = (9, 4) if E > 4096 else (23, 7)
+    x, edges = encode_operands(n, d, E, kind, seed=E + len(kind))
+    got, searched = encode_model(x.numpy(), edges.numpy())
+    np.testing.assert_array_equal(got, encode_plain(x, edges).numpy())
+    np.testing.assert_array_equal(got, np.asarray(encode_ref(jnp.asarray(x.numpy()),
+                                                             jnp.asarray(edges.numpy()))))
+    # the tables take the path they should: ascending rows the search, a row
+    # that decreases or holds a NaN edge the full count
+    if kind in ("unsorted", "nan_edge"):
+        assert not searched[1]
+    else:
+        assert searched.all()
+
+
+def test_encode_rule_on_the_wire_tables_takes_the_search():
+    x, edges, _, _ = quant_operands(25, 21, 48, max_bits=12, seed=46, dominant=True,
+                                    specials=True)
+    got, searched = encode_model(x.numpy(), edges.numpy())
+    assert edges.shape[1] == 4096 and searched.all()
+    np.testing.assert_array_equal(got, encode_plain(x, edges).numpy())
