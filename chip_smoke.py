@@ -11,7 +11,8 @@ into a pass):
 1. torch/CUDA versions and the card's name and power limit (nvidia-smi).
 2. Build the eight Hopper kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc each, in parallel): build time, registers and shared memory
-   per kernel.
+   per kernel; then the launch floor (a one-element in-place add, timed
+   as the kernels are).
 3. Each kernel (and the gram backward) against its plain PyTorch version on
    the card — at the main paths' shapes, one larger shape at the same width
    (40 machines x 1000 rows, d = 21, 4449 queries) and the edge layouts
@@ -31,7 +32,14 @@ into a pass):
    of ``ENCODE_TABLE_KINDS`` (a decreasing row, a NaN edge, duplicates,
    -0.0 beside +0.0, +-inf edges) at E = 128 and at E = 4096 with
    n = 1024, and timed at n = 1024 against a 4096-edge row; ``qgram`` within TOL at
-   (1024, 128, 1024) and a ragged batched shape with -1 rows;
+   (1024, 128, 1024), a ragged batched shape with -1 rows, a wide p (3001)
+   and a ragged d (45) gathered from L2 and from staged tables;
+   ``qgram_packed`` also at broadcast's fit call (40 x 25 x 1000, a
+   projection per machine, timed) and at each variant of ``qgram.plan``
+   (small, flat, wide, long) with its tile whole and one row or column
+   past it, and at the wide variant with p odd, W = 4, width-0 dims and
+   masked rows — every ``qgram`` and ``qgram_packed`` case checks the
+   variant the plan names and the same bits on two launches;
    ``decode_attn`` within 1e-5 max|V| at the bench shape B = 8, S = 8192,
    KV = 4, G = 8, hd = 128 with bf16 K/V, a gemma2-2b local layer (G = 2,
    hd = 256, window 4096) on a permuted ring cache and on a ring in slot
@@ -53,13 +61,13 @@ into a pass):
    m = 40, SE kernel, R = 24 bits/sample, 150 Adam steps, 4449 test points
    in 35 batches of 128), each on the card with ``gram_backend="pallas"``
    and its launch counts read from zero:
-   a. §5.1 center: fit, save, load, serve.  Checks: ``gram`` and
-      ``qgram_packed`` launched during the fit and ``gram`` on every
+   a. §5.1 center: fit, save, load, serve.  Checks: ``gram`` launched
+      during the fit, ``qgram_packed`` exactly once, and ``gram`` on every
       request; the loaded artifact's answers bitwise equal to the pre-save
       ones; the same checkpoint served on the CPU (plain versions) within
       tolerance; a finite SMSE below 1.
-   b. §5.2 broadcast (KL fusion): the same, with ``gram`` and
-      ``qgram_packed`` launched during the fit and ``gram`` and
+   b. §5.2 broadcast (KL fusion): the same, with ``gram`` launched
+      during the fit, ``qgram_packed`` exactly once, and ``gram`` and
       ``epilogue`` exactly once per request.
    c. the zero-rate rBCM baseline (``protocol="poe"``): fit and serve
       through ``gram``; its SMSE beside the other two.
@@ -151,6 +159,7 @@ def main():
         qgram_batched, qgram_cuda, qgram_packed_batched, qgram_packed_cuda,
         qgram_packed_plain, qgram_plain,
     )
+    from repro_torch.kernels.qgram.ops import plan as qgram_plan
     from repro_torch.kernels.qgram.ref import decode_gathered
     from repro_torch.kernels.quant.cases import (
         ENCODE_TABLE_KINDS, encode_operands, qgram_operands, quant_operands,
@@ -243,6 +252,10 @@ def main():
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     plan_str = lambda pl: f"{pl.tile}/{pl.splits}"  # tile configuration / splits of K
+    one = torch.zeros(1, device=dev)
+    launch_floor = device_ms(lambda: one.add_(1.0), 200)
+    print(f"[time] launch floor {launch_floor:.4f} ms (a one-element in-place add, timed as "
+          "the kernels are)", flush=True)
 
     def gram_case(tag, n, p, d, reps, timed=True, backward=True, same_bits=False):
         x = torch.randn(n, d, generator=gen).to(dev)
@@ -315,14 +328,22 @@ def main():
         mask = (torch.rand(m, n, generator=gen) >= mask_frac).float()
         return [t.to(dev) for t in (words, rates.int(), cents, proj, mask)]
 
-    def qgram_case(tag, m, n, d, p, R, reps, timed=True, **kw):
+    def qgram_case(tag, m, n, d, p, R, reps, timed=True, variant=None, **kw):
         words, rates, cents, proj, mask = packed_inputs(m, n, d, p, R, **kw)
+        pl = qgram_plan(m, n, p, d, words.shape[-1], cents.shape[-1], sms)
+        check(variant is None or pl.variant == variant,
+              f"qgram_packed {tag}: plan {pl}, not the {variant} variant")
         got = qgram_packed_cuda(words, rates, cents, proj, total_bits=R, mask=mask)
+        again = qgram_packed_cuda(words, rates, cents, proj, total_bits=R, mask=mask)
         want = qgram_packed_plain(words, rates, cents, proj, total_bits=R, mask=mask)
         codes = TS.unpack_codes(words, rates, total_bits=R)
         xhat = decode_gathered(codes, cents) * mask[..., None]
         scale = float((xhat.abs() @ proj.abs().transpose(-1, -2)).max())
-        row = {"tag": tag, "err": compare("qgram_packed", tag, got, want, scale)}
+        row = {"tag": tag, "err": compare("qgram_packed", tag, got, want, scale),
+               "plan": f"{pl.variant}/{pl.walk}"}
+        check(torch.equal(got, again), f"qgram_packed {tag}: two launches differ")
+        print(f"[kernel] qgram_packed  {tag:44s} plan {row['plan']} (variant/walk): two "
+              "launches give the same bits", flush=True)
         if timed:
             row["ms"] = device_ms(lambda: qgram_packed_cuda(
                 words, rates, cents, proj, total_bits=R, mask=mask), reps)
@@ -340,7 +361,7 @@ def main():
             nbytes = 4 * (words.numel() + rates.numel() + looked_up.numel()
                           + proj.numel() + mask.numel() + m * n * p)
             row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * p * d)
-            print(f"[time]   qgram_packed  {tag:44s} kernel {row['ms']:.4f} ms  "
+            print(f"[time]   qgram_packed  {tag:44s} plan {row['plan']}  kernel {row['ms']:.4f} ms  "
                   f"plain {row['plain_ms']:.4f} ms  torch.matmul(x̂, proj) "
                   f"{row['matmul_ms']:.4f} ms  bound {row['bound_ms']:.7f} ms "
                   f"({row['bound_by']})", flush=True)
@@ -362,9 +383,26 @@ def main():
               same_bits=True)
     check(gram_plan(130, 21, 20000, sms).splits > 1, "gram: the long-K case did not split")
     main_qgram = qgram_case("fit: 39 machines x 25 rows, p=25, R=24 (W=1)",
-                            39, 25, 21, 25, 24, 200)
-    qgram_case("larger: 40 x 1000 rows, p=4449, R=24", 40, 1000, 21, 4449, 24, 3)
+                            39, 25, 21, 25, 24, 200, variant="small")
+    qgram_case("broadcast fit: 40 x 25 rows, p=1000, R=24", 40, 25, 21, 1000, 24, 50,
+               variant="flat")
+    qgram_case("larger: 40 x 1000 rows, p=4449, R=24", 40, 1000, 21, 4449, 24, 3,
+               variant="wide")
     qgram_case("R=100 (W=4, straddling codes)", 39, 25, 21, 25, 100, 50)
+    # each plan variant's tile whole and one row or column past it
+    for tag, m_, n_, p_, d_, R_, cap_, variant in (
+        ("small tile whole: 2 x 32 x 32", 2, 32, 32, 21, 24, 12, "small"),
+        ("small tile + 1: 2 x 33 x 33", 2, 33, 33, 21, 24, 12, "small"),
+        ("flat tile whole: 300 x 32 x 64", 300, 32, 64, 21, 24, 12, "flat"),
+        ("flat tile + 1 column: 300 x 32 x 65", 300, 32, 65, 21, 24, 12, "flat"),
+        ("wide tile whole: 200 x 64 x 128", 200, 64, 128, 21, 24, 12, "wide"),
+        ("wide tile + 1: 200 x 65 x 129", 200, 65, 129, 21, 24, 12, "wide"),
+        ("long tile whole: 2 x 1024 x 1024, d=64, C=256", 2, 1024, 1024, 64, 100, 8, "long"),
+        ("long tile + 1: 2 x 1025 x 1025, d=40, C=256", 2, 1025, 1025, 40, 100, 8, "long"),
+    ):
+        qgram_case(tag, m_, n_, d_, p_, R_, 0, timed=False, variant=variant, cap=cap_)
+    qgram_case("wide: p=1001 odd, W=4, width-0 dims, masked", 3, 200, 21, 1001, 100, 0,
+               timed=False, variant="wide", zero_dims=(0, 5, 20), mask_frac=0.3)
     qgram_case("width-0 dims + masked rows, R=24", 3, 70, 21, 45, 24, 50,
                timed=False, zero_dims=(0, 5, 20), mask_frac=0.3)
     qgram_case("ragged tiles n=37 p=11 d=8, R=100, masked", 2, 37, 8, 11, 100, 50,
@@ -614,9 +652,13 @@ def main():
               "PyTorch call decodes codes and multiplies)", flush=True)
         return row
 
-    def unpacked_case(tag, m, n, d, p, bits, max_bits, pad_rows, shared_y, reps=0):
+    def unpacked_case(tag, m, n, d, p, bits, max_bits, pad_rows, shared_y, reps=0,
+                      variant=None):
         codes, cents, y = qgram_operands(m, n, d, p, bits, max_bits=max_bits, seed=m + n + p,
                                          pad_rows=pad_rows, shared_y=shared_y, device=dev)
+        pl = qgram_plan(m, n + pad_rows, p, d, None, cents.shape[-1], sms)
+        check(variant is None or pl.variant == variant,
+              f"qgram {tag}: plan {pl}, not the {variant} variant")
         got, again = qgram_cuda(codes, cents, y), qgram_cuda(codes, cents, y)
         want = qgram_plain(codes, cents, y)
         xhat = decode_gathered(codes, cents)
@@ -624,14 +666,22 @@ def main():
         row = {"tag": tag, "err": compare("qgram", tag, got, want, scale)}
         check(torch.equal(got, again), f"qgram {tag}: two launches differ")
         check(not bool(got[:, n:].any()), f"qgram {tag}: a -1 row did not give a zero row")
+        print(f"[kernel] qgram         {tag:44s} plan {pl.variant}/{pl.walk} (variant/walk): "
+              "two launches give the same bits", flush=True)
         if reps:
             row.update(time_qgram(tag, codes, cents, y, xhat, reps))
         results["qgram"].append(row)
 
     unpacked_case("bench: n=1024 d=128 p=1024, 4d bits", 1, 1024, 128, 1024, 512, 8, 0,
-                  True, reps=50)
+                  True, reps=50, variant="long")
     unpacked_case("ragged batched: 3 x (37+5 rows of -1), d=13 p=70", 3, 37, 13, 70, 30, 12,
                   5, False)
+    unpacked_case("wide p: 2 x (100+3 rows of -1), d=21 p=3001", 2, 100, 21, 3001, 24, 12, 3,
+                  False, variant="wide")
+    unpacked_case("ragged d: 2 x (77+4), d=45 p=300, C=4096", 2, 77, 45, 300, 60, 12, 4,
+                  False, variant="small")
+    unpacked_case("ragged d, staged: 2 x (1000+5), d=45 p=1000", 2, 1000, 45, 1000, 90, 8, 5,
+                  True, variant="long")
 
     # decode attention: within 1e-5 x max|V| of the plain version
     def attn_case(tag, B, S, KV, G, hd, pos, reps=0, window=None, q_dtype=torch.float32,
@@ -725,10 +775,11 @@ def main():
     def smse_of(mu):
         return float(((mu.cpu() - y_true) ** 2).mean() / y_true.var(unbiased=False))
 
-    def run_path(name, cfg, per_request, fit_kernels, roundtrip=True):
+    def run_path(name, cfg, per_request, fit_kernels, roundtrip=True, fit_once=()):
         """Fit on the card, then (optionally save and load and) serve the 35
         requests, with the launch counts read from zero.  ``per_request``:
-        the kernels every request must launch exactly once."""
+        the kernels every request must launch exactly once; ``fit_once``:
+        those the fit must launch exactly once."""
         est = DistributedGP(cfg)  # the card
         runtime.reset_launches()
         torch.cuda.synchronize()
@@ -742,6 +793,9 @@ def main():
               f"{art.integrity_bits}", flush=True)
         for k in fit_kernels:
             check(fit_launches[k] > 0, f"{name}: the fit did not launch {k}: {fit_launches}")
+        for k in fit_once:
+            check(fit_launches[k] == 1,
+                  f"{name}: the fit launched {k} {fit_launches[k]} times, not once")
         ckpt = ROOT / "build" / f"chip_smoke_ckpt_{name}"
         served = [art]
         if roundtrip:
@@ -816,7 +870,8 @@ def main():
 
     # a. §5.1 center
     cfg_c = DGPConfig(gram_backend="pallas", steps=150, bits_per_sample=24)
-    center = run_path("center", cfg_c, ("gram",), ("gram", "qgram_packed"))
+    center = run_path("center", cfg_c, ("gram",), ("gram", "qgram_packed"),
+                      fit_once=("qgram_packed",))
     cpu_art, mu_c, var_c = cpu_serve(cfg_c, center["ckpt"])
     # Tolerance per query: the cached serve computes mu = B^T walpha and
     # var = g_ss - sum(B * (P B)) with B = Ainv G_sK^T and
@@ -841,7 +896,8 @@ def main():
     # b. §5.2 broadcast, KL fusion: gram + epilogue on every request
     cfg_b = DGPConfig(protocol="broadcast", fusion="kl", gram_backend="pallas",
                       steps=150, bits_per_sample=24)
-    bcast = run_path("broadcast", cfg_b, ("gram", "epilogue"), ("gram", "qgram_packed"))
+    bcast = run_path("broadcast", cfg_b, ("gram", "epilogue"), ("gram", "qgram_packed"),
+                     fit_once=("qgram_packed",))
     cpu_art, mu_c, var_c = cpu_serve(cfg_b, bcast["ckpt"])
     # Tolerance per query: the CPU's fused operands and moment rows S with
     # epilogue_error_bound widened for what the two serves compute apart —

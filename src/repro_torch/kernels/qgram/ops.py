@@ -13,10 +13,16 @@
   code outside the table, decode to 0), through ``csrc/qgram.cu`` (family
   ``"qgram"``, again one launch over the machines) or
   :func:`.ref.qgram_plain`.
+
+Both kernels are entry points of one body (``csrc/qgram_body.cuh``);
+:func:`plan` picks its tile configuration and the column tiles a block
+walks from the shape alone.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -26,7 +32,90 @@ from .ref import qgram_packed_plain, qgram_plain
 
 __all__ = ["qgram_packed", "qgram_packed_batched", "qgram_packed_cuda",
            "qgram_packed_plain", "pack_meta", "FAMILY", "qgram", "qgram_batched",
-           "qgram_cuda", "qgram_plain", "QGRAM_FAMILY"]
+           "qgram_cuda", "qgram_plain", "QGRAM_FAMILY", "Plan", "plan", "smem_bytes",
+           "TILES", "DK"]
+
+# csrc/qgram_body.cuh's tile configurations: name -> (rows BR, columns BC)
+# of a block's output tile (256 threads each), and the blocks an SM the
+# plan's column groups aim for
+TILES = {"small": (32, 32), "flat": (32, 64), "wide": (64, 128), "long": (64, 128)}
+_AIM = {"small": 4, "flat": 2, "wide": 16, "long": 16}
+_VARIANT_ID = {"small": 0, "flat": 1, "wide": 2, "long": 3}
+DK = 32  # the body's d-chunk: at d <= DK a block decodes its rows once
+_PITCH = DK + 4  # floats a shared row
+_SMEM = 232_448  # shared memory one block may use on Hopper
+_FEW = 4  # small tiles an SM up to which a call stays on the small tile
+
+
+class Plan(NamedTuple):
+    """How ``csrc/qgram_body.cuh`` computes one call: the tile
+    configuration (a key of :data:`TILES`), the column tiles a block walks
+    and the column groups of the grid (``ceil(column tiles / walk)``, every
+    group non-empty)."""
+
+    variant: str
+    walk: int
+    groups: int
+
+
+def smem_bytes(variant: str, d: int, W: int | None = None, C: int = 0) -> int:
+    """Shared memory of one block: two x̂ buffers and two y slabs of
+    ``DK + 4``-float rows; for "long" two ``DK``-row chunks of a C-entry
+    centroid table; for the packed kernel (``W`` words a row) the staged
+    mask, meta rows and words of its rows."""
+    br, bc = TILES[variant]
+    staged = 0 if W is None else 4 * (br + 3 * d + br * W)
+    table = 4 * 2 * DK * C if variant == "long" else 0
+    return 4 * 2 * _PITCH * (br + bc) + table + staged
+
+
+def _tiles(variant: str, n: int, p: int) -> tuple[int, int]:
+    br, bc = TILES[variant]
+    return max(1, math.ceil(n / br)), max(1, math.ceil(p / bc))
+
+
+def plan(m: int, n: int, p: int, d: int, W: int | None = None, C: int = 0,
+         sms: int = 132) -> Plan:
+    """The body's plan for m machines' (n, p) outputs over d, with ``W``
+    packed words a row (None: int32 codes) and C-entry centroid tables, on
+    a card with ``sms`` SMs — a function of its arguments alone.
+
+    - "long" (64 x 128, each d-chunk's table staged in shared memory): d
+      longer than one chunk, an output of at least half a wave of its
+      tiles, and two chunks of the table within the block's shared memory
+      (the kernels bench shape);
+    - "small" (32 x 32): an output of at most four small tiles an SM (the
+      GP fit's and the wire's calls): latency-bound, spread over the SMs;
+    - "flat" (32 x 64): the rest at most 32 rows a machine (broadcast's
+      fit call, 25 rows x 1000 columns);
+    - "wide" (64 x 128): the rest (40 x 1000 x 4449).
+    A block walks ``walk`` column tiles, so the grid holds about
+    ``_AIM[variant]`` blocks an SM, balanced over the groups.  Raises
+    ValueError where a block's staged bytes exceed the card's or the grid
+    its limits."""
+    tr, tc = _tiles("long", n, p)
+    if d > DK and 2 * m * tr * tc >= sms and smem_bytes("long", d, W, C) <= _SMEM:
+        variant = "long"
+    elif m * math.prod(_tiles("small", n, p)) <= _FEW * sms:
+        variant = "small"
+    else:
+        variant = "flat" if n <= 32 else "wide"
+    if smem_bytes(variant, d, W, C) > _SMEM:
+        variant = "small"
+    if smem_bytes(variant, d, W, C) > _SMEM:
+        raise ValueError(f"qgram: d = {d}, W = {W} need {smem_bytes(variant, d, W, C)} bytes "
+                         f"of shared memory a block, more than {_SMEM}")
+    tiles_r, tiles_c = _tiles(variant, n, p)
+    if tiles_r > 65535 or m > 65535:
+        raise ValueError(f"qgram: {m} machines x {tiles_r} row tiles exceed the grid's limits")
+    walk = min(tiles_c, max(1, math.ceil(m * tiles_r * tiles_c / (_AIM[variant] * sms))))
+    walk = math.ceil(tiles_c / math.ceil(tiles_c / walk))  # balanced over the groups
+    return Plan(variant, walk, math.ceil(tiles_c / walk))
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
 
 _FN = None
 _QGRAM_FN = None
@@ -37,7 +126,7 @@ def _fn():
     if _FN is None:
         fn = build.library("qgram_packed").repro_qgram_packed_f32
         ptr = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] * 6 + [ptr, ptr, ptr, ptr, ctypes.c_int64,
+        fn.argtypes = [ctypes.c_int] * 8 + [ptr, ptr, ptr, ptr, ctypes.c_int64,
                                             ptr, ptr, ptr]
         fn.restype = ctypes.c_int
         _FN = fn
@@ -61,7 +150,8 @@ def qgram_packed_cuda(words, rates, scaled_cents, y, *, total_bits, mask=None):
     """Launch the Hopper kernel once over all machines.  words (m, n, W)
     int32, rates (m, d) integer, scaled_cents (m, d, C) fp32, y (p, d) or
     (m, p, d) fp32, mask (m, n) fp32 or None; all contiguous on one CUDA
-    device.  Raises on a bad operand or a refused launch; never falls back."""
+    device; tiled as :func:`plan` says.  Raises on a bad operand or a
+    refused launch; never falls back."""
     dev = words.device
     _need(dev.type == "cuda", f"words on {dev}, not a CUDA device")
     _need(words.dim() == 3 and scaled_cents.dim() == 3 and rates.dim() == 2,
@@ -74,25 +164,26 @@ def qgram_packed_cuda(words, rates, scaled_cents, y, *, total_bits, mask=None):
           "machine axes of words, rates and scaled_cents differ")
     _need(y.shape[-1] == d and y.dim() in (2, 3) and (y.dim() == 2 or y.shape[0] == m),
           f"y must be (p, {d}) or ({m}, p, {d}), got {tuple(y.shape)}")
-    if mask is None:
-        mask = torch.ones((m, n), dtype=torch.float32, device=dev)
-    _need(tuple(mask.shape) == (m, n), f"mask must be ({m}, {n})")
+    _need(mask is None or tuple(mask.shape) == (m, n), f"mask must be ({m}, {n})")
     _need(words.dtype == torch.int32, f"words must be int32, got {words.dtype}")
-    for name, t in (("scaled_cents", scaled_cents), ("y", y), ("mask", mask)):
+    given = [("words", words), ("rates", rates), ("scaled_cents", scaled_cents), ("y", y)]
+    given += [] if mask is None else [("mask", mask)]
+    for name, t in given[2:]:
         _need(t.dtype == torch.float32, f"{name} must be float32, got {t.dtype}")
-    for name, t in (("words", words), ("rates", rates), ("scaled_cents", scaled_cents),
-                    ("y", y), ("mask", mask)):
+    for name, t in given:
         _need(t.device == dev, f"{name} on {t.device}, words on {dev}")
         _need(t.is_contiguous(), f"{name} must be contiguous")
-    meta = pack_meta(rates).contiguous()
+    rates = rates.to(torch.int32)  # the kernel builds pack_meta's rows from them
     out = torch.empty((m, n, p), dtype=torch.float32, device=dev)
     if m == 0 or n == 0 or p == 0:
         return out
     proj_bs = p * d if y.dim() == 3 else 0
+    pl = plan(m, n, p, d, W, C, _sms(dev))
     with torch.cuda.device(dev):
         err = _fn()(
-            m, n, p, d, W, C, words.data_ptr(), meta.data_ptr(),
-            scaled_cents.data_ptr(), y.data_ptr(), proj_bs, mask.data_ptr(),
+            _VARIANT_ID[pl.variant], pl.walk, m, n, p, d, W, C, words.data_ptr(),
+            rates.data_ptr(), scaled_cents.data_ptr(), y.data_ptr(), proj_bs,
+            None if mask is None else mask.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -132,7 +223,7 @@ def _qgram_fn():
     if _QGRAM_FN is None:
         fn = build.library("qgram").repro_qgram_f32
         ptr = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] * 5 + [ptr, ptr, ptr, ctypes.c_int64, ptr, ptr]
+        fn.argtypes = [ctypes.c_int] * 7 + [ptr, ptr, ptr, ctypes.c_int64, ptr, ptr]
         fn.restype = ctypes.c_int
         _QGRAM_FN = fn
     return _QGRAM_FN
@@ -146,8 +237,8 @@ def _need_q(cond: bool, msg: str):
 def qgram_cuda(codes, scaled_cents, y):
     """Launch the Hopper kernel once over all machines: codes (m, n, d)
     int32, scaled_cents (m, d, C) fp32, y (p, d) or (m, p, d) fp32, all
-    contiguous on one CUDA device -> (m, n, p).  Raises on a bad operand or
-    a refused launch; never falls back."""
+    contiguous on one CUDA device -> (m, n, p), tiled as :func:`plan` says.
+    Raises on a bad operand or a refused launch; never falls back."""
     dev = codes.device
     _need_q(dev.type == "cuda", f"codes on {dev}, not a CUDA device")
     _need_q(codes.dim() == 3 and scaled_cents.dim() == 3,
@@ -172,9 +263,10 @@ def qgram_cuda(codes, scaled_cents, y):
     if m == 0 or n == 0 or p == 0:
         return out
     y_bs = p * d if y.dim() == 3 else 0  # a shared y: stride 0 over machines
+    pl = plan(m, n, p, d, None, C, _sms(dev))
     with torch.cuda.device(dev):
         err = _qgram_fn()(
-            m, n, p, d, C, codes.data_ptr(), scaled_cents.data_ptr(), y.data_ptr(),
+            _VARIANT_ID[pl.variant], pl.walk, m, n, p, d, C, codes.data_ptr(), scaled_cents.data_ptr(), y.data_ptr(),
             y_bs, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:

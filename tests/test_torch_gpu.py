@@ -301,6 +301,59 @@ def test_qgram_kernel(cuda, m, n, d, p, bits, pad_rows, shared_y):
     assert not bool(got[:, n:].any())  # -1 rows decode to 0
 
 
+# ---- the shared quantized-gram body: each plan variant, its tile edges ----
+
+from repro_torch.kernels.qgram import ops as qgram_ops  # noqa: E402
+
+
+@pytest.mark.parametrize("m,n,p,d,R,cap,zero_dims,mask_frac,variant", [
+    (39, 25, 25, 21, 24, 12, (), 0.0, "small"),          # the centre's fit call
+    (2, 33, 33, 21, 24, 12, (), 0.2, "small"),            # one past the small tile
+    (40, 25, 1000, 21, 24, 12, (), 0.0, "flat"),          # broadcast's fit call
+    (300, 32, 65, 21, 24, 12, (3,), 0.1, "flat"),          # one column past the flat tile
+    (3, 200, 1001, 21, 100, 12, (0, 5, 20), 0.3, "wide"),  # odd p, W = 4, width 0, masked
+    (200, 65, 129, 21, 24, 12, (), 0.0, "wide"),          # one past the wide tile
+    (2, 1024, 1025, 40, 100, 8, (7,), 0.2, "long"),       # staged tables, ragged d and p
+])
+def test_qgram_packed_variants(cuda, m, n, p, d, R, cap, zero_dims, mask_frac, variant):
+    words, rates, cents, proj, mask = _packed(R + n + p, m, n, d, p, R, zero_dims, mask_frac,
+                                              cap=cap)
+    pl = qgram_ops.plan(m, n, p, d, words.shape[-1], cents.shape[-1],
+                        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert pl.variant == variant
+    args = [t.to(cuda) for t in (words, rates, cents, proj)]
+    got = qgram_packed_cuda(*args, total_bits=R, mask=mask.to(cuda))
+    again = qgram_packed_cuda(*args, total_bits=R, mask=mask.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)  # two launches, the same bits
+    want = qgram_packed_plain(words, rates, cents, proj, total_bits=R, mask=mask)
+    _close(got.cpu().numpy(), want.numpy())
+    # no mask is every row kept, bit for bit
+    assert torch.equal(qgram_packed_cuda(*args, total_bits=R),
+                       qgram_packed_cuda(*args, total_bits=R, mask=torch.ones_like(mask).to(cuda)))
+
+
+@pytest.mark.parametrize("m,n,p,d,bits,max_bits,pad_rows,shared_y,variant", [
+    (39, 25, 25, 21, 24, 12, 7, False, "small"),    # the wire, -1 rows
+    (1, 1024, 1024, 128, 512, 8, 0, True, "long"),  # the kernels bench shape
+    (2, 100, 3001, 21, 24, 12, 3, False, "wide"),   # wide p
+    (2, 77, 300, 45, 60, 12, 4, False, "small"),    # ragged d past a chunk, gathered
+    (2, 1000, 1000, 45, 90, 8, 5, True, "long"),    # ragged d, staged tables
+])
+def test_qgram_variants(cuda, m, n, p, d, bits, max_bits, pad_rows, shared_y, variant):
+    codes, cents, y = qgram_operands(m, n, d, p, bits, max_bits=max_bits, seed=m + n + p,
+                                     pad_rows=pad_rows, shared_y=shared_y)
+    pl = qgram_ops.plan(m, n + pad_rows, p, d, None, cents.shape[-1],
+                        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert pl.variant == variant
+    got = qgram_cuda(codes.to(cuda), cents.to(cuda), y.to(cuda))
+    again = qgram_cuda(codes.to(cuda), cents.to(cuda), y.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got.cpu().numpy(), qgram_plain(codes, cents, y).numpy())
+    assert not bool(got[:, n:].any())  # -1 rows decode to 0
+
+
 @pytest.mark.parametrize("B,S,KV,G,hd,q_dtype,kv_dtype,window,pos,ring,empty", [
     (2, 1000, 4, 8, 128, torch.float32, torch.bfloat16, None, 999, False, ()),  # bench-like
     (2, 8192, 4, 2, 256, torch.float32, torch.bfloat16, 4096, 10000, True, ()),  # gemma2 local

@@ -6,7 +6,12 @@ ranges; ``epilogue.plan`` picks the variant, the point tile and the expert
 groups (every tile and expert covered once, the staged bytes within a
 block's 232,448).  ``quant_encode``'s rule (search a chunk whose edges do
 not decrease, count any other) is modeled in numpy and held bitwise against
-the plain version and the reference's ``encode_ref`` on adversarial tables.  Both are plain Python: these tests hold what the kernels rely on
+the plain version and the reference's ``encode_ref`` on adversarial tables.
+``qgram.plan`` picks the tile configuration of the shared quantized-gram
+body (``csrc/qgram_body.cuh``) and the column tiles a block walks; the
+packed kernel's meta rule (an exclusive prefix sum of the rates) and its
+unpack are modeled in numpy and held against ``pack_meta`` and
+``unpack_codes``.  All are plain Python: these tests hold what the kernels rely on
 (every split non-empty, together covering the reduction exactly, a whole
 number of k-slabs or 128-slot units a split) and the shapes the paths give them
 (the GP request and fit products stay one launch of one tile; the long-K
@@ -28,7 +33,9 @@ from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
 from repro_torch.kernels.epilogue.ops import (  # noqa: E402
     MMA_POINTS, SMALL_K, plan as epi_plan, plan_fleet as epi_plan_fleet, smem_bytes as epi_smem,
 )
+from repro_torch.core import torch_scheme as TS  # noqa: E402
 from repro_torch.kernels.gram.ops import TILES, Plan, plan as gram_plan  # noqa: E402
+from repro_torch.kernels.qgram import ops as qgram_ops  # noqa: E402
 from repro_torch.kernels.quant.cases import (  # noqa: E402
     ENCODE_TABLE_KINDS, encode_operands, quant_operands,
 )
@@ -287,3 +294,159 @@ def test_encode_rule_on_the_wire_tables_takes_the_search():
     got, searched = encode_model(x.numpy(), edges.numpy())
     assert edges.shape[1] == 4096 and searched.all()
     np.testing.assert_array_equal(got, encode_plain(x, edges).numpy())
+
+
+# ---- the quantized-gram body's plan (csrc/qgram_body.cuh) -------------------------
+
+QGRAM_SHAPES = [  # (m, n, p, d, W words a row or None for int32 codes, C table entries)
+    (39, 25, 25, 21, 1, 4096),       # the centre's fit call (R = 24)
+    (39, 32, 25, 21, None, 4096),    # the wire's qgram (25 rows + 7 of -1)
+    (40, 25, 1000, 21, 1, 4096),     # broadcast's fit call
+    (40, 1000, 4449, 21, 1, 4096),   # 40 x 1000 rows against 4449 queries
+    (1, 1024, 1024, 128, None, 256),  # the kernels bench shape
+    (2, 32, 32, 21, 1, 4096),        # the small tile whole
+    (2, 33, 33, 21, 1, 4096),        # one row and column past it
+    (300, 32, 64, 21, 1, 4096),      # the flat tile whole
+    (300, 32, 65, 21, 1, 4096),      # one column past it
+    (200, 64, 128, 21, 1, 4096),     # the wide tile whole
+    (200, 65, 129, 21, 1, 4096),     # one row and column past it
+    (3, 200, 1001, 21, 4, 4096),     # odd p, W = 4 (straddling codes)
+    (2, 1024, 1025, 40, 4, 256),     # the long tile, ragged d and p
+    (2, 77, 300, 45, None, 4096),    # d past a chunk, a table too large to stage
+    (1, 1, 1, 1, None, 8),
+    (2, 10, 3, 5, 0, 4096),          # rate 0: no words
+    (1, 4449, 40000, 21, None, 4096),
+    (1, 10, 10, 5000, 200, 4096),    # long d: meta rows and words still staged
+]
+
+
+@pytest.mark.parametrize("m,n,p,d,W,C", QGRAM_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_qgram_plan_covers_every_output_once(m, n, p, d, W, C, sms):
+    pl = qgram_ops.plan(m, n, p, d, W, C, sms)
+    br, bc = qgram_ops.TILES[pl.variant]
+    tiles_r, tiles_c = math.ceil(n / br), math.ceil(p / bc)
+    assert pl.walk >= 1 and pl.groups == math.ceil(tiles_c / pl.walk)
+    # the grid is (column group, row tile, machine): every machine once, and
+    # within a machine rows x columns, so each axis covered once suffices
+    rows = np.zeros(n, int)
+    for r in range(tiles_r):
+        rows[r * br:(r + 1) * br] += 1
+    cols = np.zeros(p, int)
+    for g in range(pl.groups):
+        tiles = range(g * pl.walk, min((g + 1) * pl.walk, tiles_c))
+        assert len(tiles) > 0  # no group without a column tile
+        for t in tiles:
+            cols[t * bc:(t + 1) * bc] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+
+
+@pytest.mark.parametrize("m,n,p,d,W,C", QGRAM_SHAPES)
+def test_qgram_plan_staged_bytes_and_grid_within_the_card_limits(m, n, p, d, W, C):
+    pl = qgram_ops.plan(m, n, p, d, W, C, 132)
+    br, _ = qgram_ops.TILES[pl.variant]
+    assert qgram_ops.smem_bytes(pl.variant, d, W, C) <= 232_448
+    assert pl.groups < 2**31 and math.ceil(n / br) <= 65535 and m <= 65535
+
+
+@pytest.mark.parametrize("m,n,p,d,W,C", QGRAM_SHAPES)
+def test_qgram_plan_depends_only_on_its_arguments(m, n, p, d, W, C):
+    first = qgram_ops.plan(m, n, p, d, W, C, 132)
+    qgram_ops.plan(1, 1024, 1024, 128, None, 256, 114)  # another call between
+    assert qgram_ops.plan(m, n, p, d, W, C, 132) == first
+    assert qgram_ops.plan(m, n, p, d, W=W, C=C, sms=132) == first
+
+
+@pytest.mark.parametrize("m,n,p,d,W,C,variant", [
+    (39, 25, 25, 21, 1, 4096, "small"),        # the centre's fit call
+    (39, 32, 25, 21, None, 4096, "small"),     # the wire's qgram
+    (40, 25, 1000, 21, 1, 4096, "flat"),       # broadcast's fit call
+    (40, 1000, 4449, 21, 1, 4096, "wide"),     # the wide output
+    (1, 1024, 1024, 128, None, 256, "long"),   # the kernels bench shape
+    (300, 32, 65, 21, 1, 4096, "flat"),
+    (200, 65, 129, 21, 1, 4096, "wide"),
+    (3, 200, 1001, 21, 4, 4096, "wide"),
+    (2, 1024, 1025, 40, 4, 256, "long"),
+    (2, 77, 300, 45, None, 4096, "small"),     # its table too large to stage
+])
+def test_qgram_plan_takes_the_variant_named_for_each_shape(m, n, p, d, W, C, variant):
+    assert qgram_ops.plan(m, n, p, d, W, C, 132).variant == variant
+
+
+def test_qgram_fit_calls_are_one_tile_a_machine_and_the_bench_one_column_tile_a_block():
+    assert qgram_ops.plan(39, 25, 25, 21, 1, 4096) == qgram_ops.Plan("small", 1, 1)
+    assert qgram_ops.plan(1, 1024, 1024, 128, None, 256).walk == 1
+    wide = qgram_ops.plan(40, 1000, 4449, 21, 1, 4096)
+    assert wide.walk > 1  # a block decodes its rows once for several column tiles
+
+
+def test_qgram_plan_refuses_a_block_that_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        qgram_ops.plan(1, 10, 10, 30000, 30000, 4096)
+
+
+def meta_model(rates):
+    """The packed kernel's meta rows: warp 0 scans each machine's rates in
+    chunks of 32 lanes (an inclusive shuffle scan plus the carry of the
+    chunks before), offset = inclusive - width; word = offset >> 5, bit =
+    offset & 31, in 32-bit two's complement."""
+    m, d = rates.shape
+    meta = np.zeros((m, 3, d), np.int64)
+    for b in range(m):
+        carry = 0
+        for j0 in range(0, d, 32):
+            w = np.zeros(32, np.int64)
+            live = rates[b, j0:j0 + 32].astype(np.int64)
+            w[:live.size] = live
+            incl = np.cumsum(w) & 0xFFFFFFFF
+            offs = (carry + incl - w) & 0xFFFFFFFF
+            offs = np.where(offs >= 2**31, offs - 2**32, offs)  # back to int32
+            meta[b, 0, j0:j0 + live.size] = (offs >> 5)[:live.size]
+            meta[b, 1, j0:j0 + live.size] = (offs & 31)[:live.size]
+            meta[b, 2, j0:j0 + live.size] = live
+            carry = (carry + int(incl[31])) & 0xFFFFFFFF
+    return meta
+
+
+def unpack_model(words, meta):
+    """The packed kernel's unpack of one row set: width 0 gives 0, the high
+    part of a straddling code comes from word + 1, a word past the row
+    reads 0, width >= 32 takes the full mask."""
+    m, n, W = words.shape
+    d = meta.shape[-1]
+    w = words.astype(np.int64) & 0xFFFFFFFF
+    codes = np.zeros((m, n, d), np.int64)
+    for b in range(m):
+        for j in range(d):
+            wi, bit, width = (int(v) for v in meta[b, :, j])
+            if width == 0:
+                continue
+            lo = (w[b, :, wi] >> bit) if 0 <= wi < W else 0
+            hi = ((w[b, :, wi + 1] << (32 - bit)) & 0xFFFFFFFF) if bit > 0 and wi + 1 < W else 0
+            mask = 0xFFFFFFFF if width >= 32 else (1 << width) - 1
+            codes[b, :, j] = (lo | hi) & mask
+    return codes
+
+
+@pytest.mark.parametrize("m,d,R,cap,zero_dims", [
+    (39, 21, 24, 12, ()),       # the wire's rates at R = 24 (W = 1)
+    (5, 21, 100, 12, (0, 5)),   # W = 4: codes straddle words, width-0 dims
+    (3, 70, 300, 9, (69,)),     # d past a warp's 32 lanes: the scan's carry
+    (2, 5, 0, 8, ()),           # rate 0
+])
+def test_packed_meta_and_unpack_rules_match_pack_meta_and_unpack_codes(m, d, R, cap, zero_dims):
+    rng = np.random.default_rng(m + d + R)
+    live = [j for j in range(d) if j not in zero_dims]
+    rates = np.zeros((m, d), np.int64)
+    for b in range(m):
+        for _ in range(R):
+            j = live[rng.integers(len(live))]
+            rates[b, j] = min(rates[b, j] + 1, cap)
+    meta = meta_model(rates)
+    np.testing.assert_array_equal(meta, qgram_ops.pack_meta(torch.from_numpy(rates)).numpy())
+    codes = rng.integers(0, 2 ** rates[:, None, :], size=(m, 17, d))
+    words = TS.pack_codes(torch.from_numpy(codes), torch.from_numpy(rates), total_bits=R)
+    got = unpack_model(words.numpy(), meta)
+    np.testing.assert_array_equal(got, codes)
+    np.testing.assert_array_equal(
+        got, TS.unpack_codes(words, torch.from_numpy(rates), total_bits=R).numpy())
