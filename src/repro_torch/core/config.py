@@ -119,3 +119,21 @@ class DGPConfig:
                 f"config carries a fault plan ({_FAULTS_SLICE})"
             )
         return cls(**d)
+
+    @classmethod
+    def from_legacy_meta(cls, meta: dict) -> "DGPConfig":
+        """The config of a format-v1 checkpoint (no ``config`` block), rebuilt
+        from its metadata as the reference does: what serving needs is
+        recorded exactly; steps and lr were not recorded and stay at their
+        defaults."""
+        return cls(
+            protocol=meta["protocol"],
+            scheme=meta.get("scheme", "per_symbol"),
+            kernel=meta["kernel"],
+            fusion=meta["fuse"] or "kl",
+            impl="batched",  # checkpoints always restore single-host
+            gram_backend=meta["gram_backend"],
+            gram_mode=meta["gram_mode"],
+            bits_per_sample=meta["bits_per_sample"],
+            max_bits=meta["max_bits"],
+        )

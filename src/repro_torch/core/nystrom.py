@@ -4,7 +4,10 @@ of ``repro/core/nystrom.py``.
 Given the first K rows ``G_KN`` of an N x N gram (the center's exact block
 plus the quantization-estimated cross blocks), approximate
 ``Ghat = G_NK G_KK^{-1} G_KN`` and serve its GP posterior in woodbury form,
-factorized once at fit time.  The streaming Cholesky updates
+factorized once at fit time.  ``exact_diag=`` pins the completion's
+diagonal to the exact prior variances (the FITC correction), and
+:func:`nystrom_cross` maps test points through the same completion.  The
+streaming Cholesky updates
 (``chol_update*``/``chol_append*``) come with the streaming slice.
 """
 from __future__ import annotations
@@ -15,6 +18,9 @@ from .linalg_safe import DEFAULT_JITTER, chol_jittered, chol_safe
 
 __all__ = [
     "nystrom_complete",
+    "nystrom_complete_map",
+    "nystrom_cross",
+    "nystrom_cross_mapped",
     "nystrom_kinv",
     "nystrom_factors",
     "nystrom_apply",
@@ -54,12 +60,40 @@ def _kk_jitter(G_KK):
     return DEFAULT_JITTER * torch.diagonal(G_KK, dim1=-2, dim2=-1).sum(-1) / G_KK.shape[-1]
 
 
-def nystrom_complete(G_KK, G_KN):
-    """Ghat = G_NK G_KK^{-1} G_KN (eq. 61); one-shot jitter, differentiable
-    (the training loss runs through it)."""
+def _map(G_KK, G_KN):
+    """(L_KK, W): L_KK = chol(G_KK + one-shot jitter), W = L_KK^{-1} G_KN."""
     L = chol_jittered(G_KK, _kk_jitter(G_KK))
-    W = _tri_solve(L, G_KN)  # (K, N)
-    return W.mT @ W
+    return L, _tri_solve(L, G_KN)  # (K, K), (K, N)
+
+
+def nystrom_complete(G_KK, G_KN, exact_diag=None):
+    """Ghat = G_NK G_KK^{-1} G_KN (eq. 61); one-shot jitter, differentiable
+    (the training loss runs through it).  ``exact_diag`` (N,): the true
+    diagonal to pin (FITC: Ghat's diagonal is raised to it, never lowered)."""
+    return nystrom_complete_map(G_KK, G_KN, exact_diag)[0]
+
+
+def nystrom_complete_map(G_KK, G_KN, exact_diag=None):
+    """:func:`nystrom_complete` with the map it went through:
+    (Ghat, L_KK, W), Ghat = W^T W (+ the pinned diagonal)."""
+    L, W = _map(G_KK, G_KN)
+    Ghat = W.mT @ W
+    if exact_diag is not None:
+        gap = torch.clamp(exact_diag - torch.diagonal(Ghat, dim1=-2, dim2=-1), min=0.0)
+        Ghat = Ghat + torch.diag_embed(gap)
+    return Ghat, L, W
+
+
+def nystrom_cross(G_KK, G_KN, G_star_K):
+    """Test-train covariance through the same Nyström map:
+    Q_*N = G_*K G_KK^{-1} G_KN (the FITC test covariance)."""
+    return nystrom_cross_mapped(*_map(G_KK, G_KN), G_star_K)
+
+
+def nystrom_cross_mapped(L_KK, W, G_star_K):
+    """:func:`nystrom_cross` from the (L_KK, W) of
+    :func:`nystrom_complete_map`: (L_KK^{-1} G_*K^T)^T W."""
+    return _tri_solve(L_KK, G_star_K.mT).mT @ W
 
 
 def nystrom_kinv(W, L_M, s2, v):

@@ -14,7 +14,8 @@ Artifacts are dataclasses of tensors on one device (``art.device``);
 :func:`predict` serves on that device, optionally with a machine
 availability mask (``available=``) that the fusing protocols renormalize
 over.  Streaming ``update`` (slice 3) and ``health`` (slice 4) come later;
-the ``stream`` leaves are kept so checkpoints stay format v6.
+the ``stream`` leaves are kept so checkpoints stay format v6, and
+checkpoints of every older format load.
 """
 from __future__ import annotations
 
@@ -349,12 +350,38 @@ def save_artifact(art: FittedProtocol, directory: str, step: int = 0) -> str:
     return _save(directory, step, artifact_arrays(art), meta)
 
 
+def _pack_legacy_wire(codes: np.ndarray, rates, meta: dict, device) -> torch.Tensor:
+    """A pre-v3 checkpoint's unpacked int32 code plane (m, n_pad, d), -1 on
+    padded rows, as the packed word plane of a fresh fit (-1 rows pack to
+    zero words); vq never had codes and gets zero words."""
+    from ...comm.accounting import row_bits
+    from ..torch_scheme import pack_codes
+
+    m, n_pad, d = codes.shape
+    if meta.get("scheme", "per_symbol") == "vq":
+        return torch.zeros((m, n_pad, 0), dtype=torch.int32, device=device)
+    total = row_bits(meta["bits_per_sample"], d, meta["max_bits"])
+    return pack_codes(torch.from_numpy(np.array(codes, copy=True)).to(device), rates,
+                      total_bits=total)
+
+
 def artifact_from_arrays(meta: dict, arrays: dict, device=None) -> FittedProtocol:
     """Build the port's artifact on ``device`` from a checkpoint's ``meta``
     and its arrays (numpy, keyed as in the reference's npz) — a checkpoint
-    of either package.  This slice serves v5/v6 artifacts of the center
-    and broadcast (Nyström) and poe (dense) protocols; older formats and
-    other gram modes raise ``NotImplementedError``."""
+    of either package, of any format version the reference loads:
+
+    * v1 (no ``config`` block): the config is rebuilt by
+      :meth:`DGPConfig.from_legacy_meta`;
+    * before v3 (unpacked int32 codes): the codes are packed as a fit
+      packs them;
+    * before v5 (no ``stream/*``): the stream state is made from the json's
+      counts and ledgers (``payload_bits`` before v3 and ``integrity_bits``
+      before v4 were not recorded: 0), center artifacts get their all-live
+      ``valid`` mask, and poe's streamed extras (``X_extra``,
+      ``extra_mask``, ``y_extra``) are folded into the experts' columns.
+
+    This is the one place where state of the reference crosses into the
+    port."""
     from ..config import ARTIFACT_FORMAT_VERSION, DGPConfig
 
     version = meta.get("format_version", 1)
@@ -365,20 +392,6 @@ def artifact_from_arrays(meta: dict, arrays: dict, device=None) -> FittedProtoco
         )
     protocol = meta["protocol"]
     PROTOCOLS.get(protocol)  # raises for a protocol not ported yet
-    stream_keys = [f"stream/{f.name}" for f in dataclasses.fields(StreamState)]
-    if meta.get("config") is None or not all(k in arrays for k in stream_keys):
-        raise NotImplementedError(
-            f"format-v{version} checkpoints (no config block or no stream/* "
-            "arrays) are not ported yet: the legacy loaders are at the head "
-            "of queue 1, slice 2b in ROADMAP.md"
-        )
-    wanted = "dense" if protocol == "poe" else "nystrom"
-    if meta["gram_mode"] != wanted:
-        raise NotImplementedError(
-            f"{protocol} gram_mode={meta['gram_mode']!r} is not ported yet "
-            "(queue 1, slice 2b in ROADMAP.md)"
-        )
-    config = dataclasses.replace(DGPConfig.from_dict(meta["config"]), impl="batched")
     device = resolve_device(device)
 
     def put(key):
@@ -391,20 +404,39 @@ def artifact_from_arrays(meta: dict, arrays: dict, device=None) -> FittedProtoco
     factors, data = group("factors"), group("data")
     wire = None
     if meta["has_wire"]:
-        if arrays["wire/codes"].dtype != np.uint32:
-            raise NotImplementedError(
-                "unpacked (pre-v3) wire codes are not ported yet (queue 1, "
-                "slice 2b in ROADMAP.md)"
-            )
         wire = WireState(*(
-            words_from_uint32(arrays["wire/codes"], device) if f.name == "codes"
-            else put(f"wire/{f.name}")
+            None if f.name == "codes" else put(f"wire/{f.name}")
             for f in dataclasses.fields(WireState)
         ))
+        codes = arrays["wire/codes"]
+        wire.codes = (words_from_uint32(codes, device) if codes.dtype == np.uint32
+                      else _pack_legacy_wire(codes, wire.rates, meta, device))
+    cfg = meta.get("config")
+    config = DGPConfig.from_dict(cfg) if cfg else DGPConfig.from_legacy_meta(meta)
+    config = dataclasses.replace(config, impl="batched")
     y = put("y")
+    stream_keys = [f"stream/{f.name}" for f in dataclasses.fields(StreamState)]
+    if all(k in arrays for k in stream_keys):
+        stream = StreamState(*(put(k) for k in stream_keys))
+    else:
+        cols = y.shape[-1] if protocol == "poe" else y.shape[0]
+        if "X_extra" in data:
+            cols += data["X_extra"].shape[0]
+        stream = StreamState.make(
+            meta["lengths"], cols, meta["wire_bits"], meta.get("payload_bits", 0),
+            meta.get("integrity_bits", 0), meta.get("rows_demoted", 0), device=device,
+        )
     if protocol == "center" and "valid" not in data:
         data["valid"] = torch.ones_like(y)
-    stream = StreamState(*(put(k) for k in stream_keys))
+    if protocol == "poe" and "X_extra" in data:
+        # the dense factors already hold the [n_pad | extras] column order
+        Xe, em, ye = data.pop("X_extra"), data.pop("extra_mask"), data.pop("y_extra")
+        m = em.shape[0]
+        y = torch.cat([y, ye[None, :] * em], dim=1)
+        data["Xs"] = torch.cat([data["Xs"], Xe[None].expand(m, -1, -1)], dim=1)
+        data["mask"] = torch.cat([data["mask"], em], dim=1)
+        sq_e = torch.sum(Xe**2, -1)
+        data["sq_exact"] = torch.cat([data["sq_exact"], sq_e[None].expand(m, -1)], dim=1)
     return FittedProtocol(
         params=params, y=y, factors=factors, data=data, wire=wire,
         stream=stream, protocol=protocol, kernel=meta["kernel"],

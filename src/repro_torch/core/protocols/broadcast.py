@@ -13,15 +13,22 @@ With ``gram_backend="pallas"`` each batched product is ONE kernel launch:
 the own blocks A through ``gram`` on the flattened shards, the cross blocks
 B through ``qgram_packed`` straight from the packed words, and on every
 request the query products C through ``gram`` and the whole serve tail
-through the fused ``epilogue``.  This slice ports ``gram_mode="nystrom"``;
-``"direct"`` waits in slice 2b (ROADMAP.md).
+through the fused ``epilogue``.
+
+``gram_mode="direct"`` gives each machine a dense N x N view instead: its
+own rows exact, every other block decoded-vs-decoded, one batched Cholesky
+for the m views.  Under ``"pallas"`` its decoded-vs-decoded products D come
+from one more ``qgram_packed`` launch at fit time, and each request's
+products against the reconstructions E from one ``qgram_packed`` launch
+beside the ``gram`` launch; it serves through ``posterior_apply`` and the
+fusion rule, not the fused epilogue.
 """
 from __future__ import annotations
 
 import torch
 
 from ...comm.accounting import row_bits
-from ..gp import GPParams, kernel_from_inner, train_gp
+from ..gp import GPParams, kernel_from_inner, posterior_apply, posterior_factors, train_gp
 from ..linalg_safe import DEFAULT_JITTER
 from ..nystrom import (
     nystrom_apply, nystrom_apply_cached, nystrom_complete, nystrom_factors,
@@ -81,12 +88,54 @@ def _star_exact_products(Xs, X_star, backend: str):
     return torch.einsum("td,ind->itn", X_star, Xs)
 
 
-def _fit_broadcast(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
-    if cfg.gram_mode != "nystrom":
-        raise NotImplementedError(
-            f"broadcast gram_mode={cfg.gram_mode!r} is not ported yet (queue 1, "
-            "slice 2b in ROADMAP.md)"
+def _decoded_inner_products(shards: PaddedShards, wire: WireState, backend: str,
+                            pack_bits: int = 0):
+    """D (m, n, m n): D[j] = X̂_j [X̂_0 .. X̂_{m-1}]^T, decoded against
+    decoded — only the direct views read it.  One ``qgram_packed`` launch
+    over the machines under the pallas backend, a projection of the
+    flattened reconstructions per machine."""
+    m, n, d = shards.X.shape
+    dec_flat = wire.decoded.reshape(m * n, d)
+    if backend == "pallas":
+        from ...kernels.qgram.ops import qgram_packed_batched
+
+        proj = torch.einsum("Nd,jde->jNe", dec_flat, wire.T_inv).contiguous()
+        return qgram_packed_batched(
+            wire.codes, wire.rates, wire.scaled_cents, proj,
+            total_bits=pack_bits, mask=shards.mask,
         )
+    return torch.einsum("jnd,Nd->jnN", wire.decoded, dec_flat)
+
+
+def _star_decoded_products(wire: WireState, X_star, backend: str, pack_bits: int = 0,
+                           mask=None):
+    """E (m, t, n): E[j] = X_star X̂_j^T, the query's products against the
+    reconstructions (direct views only); one ``qgram_packed`` launch
+    straight from the packed words under the pallas backend."""
+    if backend == "pallas":
+        from ...kernels.qgram.ops import qgram_packed_batched
+
+        proj = torch.einsum("td,jde->jte", X_star, wire.T_inv).contiguous()
+        return qgram_packed_batched(
+            wire.codes, wire.rates, wire.scaled_cents, proj,
+            total_bits=pack_bits, mask=mask,
+        ).transpose(1, 2)
+    return torch.einsum("td,jnd->jtn", X_star, wire.decoded)
+
+
+def _view_sq_cols(sq_exact, sq_dec):
+    """(m, m n): view i's column norms — machine i's block exact, every
+    other block decoded."""
+    m = sq_exact.shape[0]
+    ar = torch.arange(m, device=sq_exact.device)
+    sq_cols = sq_dec[None].repeat(m, 1, 1)
+    sq_cols[ar, ar] = sq_exact
+    return sq_cols.reshape(m, -1)
+
+
+def _fit_broadcast(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
+    if cfg.gram_mode not in ("nystrom", "direct"):
+        raise ValueError(f"unknown broadcast gram mode {cfg.gram_mode!r}")
     m = len(parts)
     shards = pad_parts(parts, device)
     d = shards.X.shape[-1]
@@ -129,16 +178,26 @@ def _fit_broadcast(parts, cfg, params: GPParams | None, device) -> FittedProtoco
     blocks = B.permute(1, 0, 3, 2).clone()  # [i, j]: Xs_i X̂_j^T
     blocks[ar, ar] = A
     ip_KN = blocks.permute(0, 2, 1, 3).reshape(m, n_pad, m * n_pad)
-    sq_cols = sq_dec[None].repeat(m, 1, 1)
-    sq_cols[ar, ar] = sq_exact
-    sq_cols = sq_cols.reshape(m, m * n_pad)
-    G_KK = _mask_gram(kernel_from_inner(kernel, p, A, sq_exact, sq_exact), shards.mask)
-    G_KN = kernel_from_inner(kernel, p, ip_KN, sq_exact, sq_cols) * (
-        shards.mask[:, :, None] * mask_flat[None, None, :]
-    )
-    factors = nystrom_factors(G_KK, G_KN, y_flat.expand(m, -1), noise)
-    if cfg.serve_epilogue == "fused":
-        factors.update(nystrom_serve_cache(factors))
+    sq_cols = _view_sq_cols(sq_exact, sq_dec)
+    if cfg.gram_mode == "direct":
+        # view i: row block i is ip_KN[i]; every other row block r is
+        # decoded-vs-decoded (D[r]) except its column block i, decoded-vs-
+        # exact (B[r, i])
+        D = _decoded_inner_products(shards, wire, backend, pack_bits)
+        rows = D.reshape(m, n_pad, m, n_pad)[None].repeat(m, 1, 1, 1, 1)  # [i, r, a, c, b]
+        rows[ar, :, :, ar, :] = B.permute(1, 0, 2, 3)
+        rows[ar, ar] = ip_KN.reshape(m, n_pad, m, n_pad)
+        ip_NN = rows.reshape(m, m * n_pad, m * n_pad)
+        G = _mask_gram(kernel_from_inner(kernel, p, ip_NN, sq_cols, sq_cols), mask_flat)
+        factors = posterior_factors(G, y_flat.expand(m, -1), noise)
+    else:
+        G_KK = _mask_gram(kernel_from_inner(kernel, p, A, sq_exact, sq_exact), shards.mask)
+        G_KN = kernel_from_inner(kernel, p, ip_KN, sq_exact, sq_cols) * (
+            shards.mask[:, :, None] * mask_flat[None, None, :]
+        )
+        factors = nystrom_factors(G_KK, G_KN, y_flat.expand(m, -1), noise)
+        if cfg.serve_epilogue == "fused":
+            factors.update(nystrom_serve_cache(factors))
     data = {"Xs": shards.X, "mask": shards.mask, "sq_exact": sq_exact, "sq_dec": sq_dec}
     return FittedProtocol(
         params=p, y=y_flat, factors=factors, data=data, wire=wire,
@@ -164,15 +223,39 @@ def _expert_cross_gram(art, X_star, sq_star):
 
 def _predict_broadcast_experts(art, X_star, sq_star, g_ss, noise):
     """(m, t) per-expert predictives (mus, s2s), unfused."""
+    if art.gram_mode == "direct":
+        return _predict_direct_experts(art, X_star, sq_star, g_ss)
     G = _expert_cross_gram(art, X_star, sq_star)
     if "Ainv" in art.factors:
         return nystrom_apply_cached(art.factors, G, g_ss, noise)
     return nystrom_apply(art.factors, G, g_ss, noise)
 
 
+def _predict_direct_experts(art, X_star, sq_star, g_ss):
+    """(m, t) dense predictives of the direct views: view i's cross-
+    covariances to machine i's exact rows (C[i]) and to every other
+    machine's reconstruction (E[j])."""
+    Xs, mask = art.data["Xs"], art.data["mask"]
+    m, n_pad, d = Xs.shape
+    C = _star_exact_products(Xs, X_star, art.gram_backend)
+    E = _star_decoded_products(
+        art.wire, X_star, art.gram_backend,
+        row_bits(art.bits_per_sample, d, art.max_bits), mask,
+    )
+    ar = torch.arange(m, device=Xs.device)
+    cols = E[None].repeat(m, 1, 1, 1)  # [i, j, t, n]
+    cols[ar, ar] = C
+    ip_sN = cols.permute(0, 2, 1, 3).reshape(m, -1, m * n_pad)
+    sq_cols = _view_sq_cols(art.data["sq_exact"], art.data["sq_dec"])
+    G_sn = kernel_from_inner(art.kernel, art.params, ip_sN, sq_star, sq_cols) \
+        * mask.reshape(-1)
+    return posterior_apply(art.factors, G_sn, g_ss)
+
+
 def _uses_fused_epilogue(art, spec) -> bool:
     """This artifact serves through the one-launch fused epilogue: pallas
-    backend, cached Nyström serve operands, a fusion with moment rows."""
+    backend, Nyström views with their cached serve operands, a fusion with
+    moment rows."""
     return (
         art.gram_backend == "pallas"
         and art.gram_mode == "nystrom"

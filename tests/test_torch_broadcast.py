@@ -275,8 +275,17 @@ def test_cpu_path_launches_no_kernel():
 
 def test_unported_broadcast_paths_raise_naming_their_slice():
     est = DistributedGP(DGPConfig(protocol="broadcast", gram_mode="direct"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        est.fit(parts=PARTS)
+    for impl in ("host", "mesh"):
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            DistributedGP(dataclasses.replace(est.config, impl=impl), device="cpu").fit(
+                parts=PARTS)
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        est.update(None, None, None)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        est.health(None)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        DistributedGP(dataclasses.replace(est.config, scheme="vq"), device="cpu").fit(
+            parts=PARTS)
     with pytest.raises(ValueError, match="available mask has 3 entries"):
         _, (art, _) = (None, _port_run("xla", 0, **BROADCAST))
         DistributedGP(device="cpu").predict(art, XQ, available=[1, 1, 1])

@@ -236,9 +236,12 @@ def test_unported_paths_raise_naming_their_slice():
         est.update(None, None, None)
     with pytest.raises(NotImplementedError, match="slice 4"):
         est.health(None)
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        DistributedGP(DGPConfig(gram_mode="nystrom_fitc"), device="cpu").fit(parts=PARTS)
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        DistributedGP(DGPConfig(gram_mode="direct"), device="cpu").fit(parts=PARTS)
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        DGPConfig(faults=object())
+    for impl in ("host", "mesh"):
+        with pytest.raises(NotImplementedError, match="slice 7"):
+            DistributedGP(DGPConfig(impl=impl), device="cpu").fit(parts=PARTS)
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        DistributedGP(DGPConfig(scheme="vq"), device="cpu").fit(parts=PARTS)
     with pytest.raises(ValueError, match="known protocols"):
         DGPConfig(protocol="nope")

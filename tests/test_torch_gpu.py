@@ -17,6 +17,8 @@ applied per tenant.  The broadcast and poe paths serve a
 checkpoint on the card and on the CPU: 1e-4 of the output's scale, the
 fused serve's cancellation at this small, well-conditioned size.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -196,6 +198,59 @@ def test_broadcast_and_poe_on_card(cuda, tmp_path, protocol, fusion):
                                    atol=1e-4 * max(1.0, float(np.abs(want).max())))
 
 
+# the launches of each gram mode's fit and request under the pallas backend:
+# the Nyström modes' inner products (and the direct views' N x N ones) come
+# from the kernels once at fit time, so training launches nothing
+GRAM_MODE_LAUNCHES = {
+    ("center", "direct"): ({"gram": 1, "qgram_packed": 1}, {"gram": 1, "qgram_packed": 1}),
+    ("center", "nystrom_fitc"): ({"gram": 1, "qgram_packed": 1}, {"gram": 1}),
+    ("broadcast", "direct"): ({"gram": 1, "qgram_packed": 2}, {"gram": 1, "qgram_packed": 1}),
+}
+
+
+@pytest.mark.parametrize("protocol,mode", list(GRAM_MODE_LAUNCHES))
+def test_gram_modes_on_card(cuda, tmp_path, protocol, mode):
+    parts, Xq = _fig6_like()
+    cfg = DGPConfig(protocol=protocol, gram_mode=mode, gram_backend="pallas", steps=10)
+    est = DistributedGP(cfg)
+    want_fit, want_request = GRAM_MODE_LAUNCHES[protocol, mode]
+    runtime.reset_launches()
+    art = est.fit(parts=parts)
+    assert {k: v for k, v in runtime.launches().items() if v} == want_fit
+    runtime.reset_launches()
+    mu, var = est.predict(art, Xq)
+    assert {k: v for k, v in runtime.launches().items() if v} == want_request
+    est.save(art, str(tmp_path))
+    mu2, var2 = est.predict(est.load(str(tmp_path)), Xq)
+    assert torch.equal(mu, mu2) and torch.equal(var, var2)
+    cpu = DistributedGP(cfg, device="cpu")
+    mu_c, var_c = cpu.predict(cpu.load(str(tmp_path)), Xq)
+    for got, want in ((mu, mu_c), (var, var_c)):
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+def test_legacy_fixture_serves_on_card(cuda):
+    """The committed format-v1 checkpoint (no config, unpacked codes) loads
+    onto the card and serves as it does on the CPU, within 5e-5 of
+    max(1, max |CPU value|).  Its unfused serve solves against a 12 x 12
+    L_KK, whose conditioning amplifies the two devices' rounding: an H100
+    read 1.7e-6 (mu) and 8.2e-6 (var) of that scale; the limit keeps a
+    margin of six."""
+    fixture = os.path.join(os.path.dirname(__file__), "fixtures", "legacy_artifact")
+    Xt = np.load(os.path.join(fixture, "expected.npz"))["Xt"]
+    card, cpu = DistributedGP(), DistributedGP(device="cpu")
+    art = card.load(fixture)
+    assert art.device.type == "cuda" and art.wire.codes.dtype == torch.int32
+    mu, var = card.predict(art, Xt)
+    mu_c, var_c = cpu.predict(cpu.load(fixture), Xt)
+    for got, want in ((mu, mu_c), (var, var_c)):
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                                   atol=5e-5 * max(1.0, float(np.abs(want).max())))
+
+
 @pytest.mark.parametrize("fuse", EPILOGUE_FUSES)
 @pytest.mark.parametrize("T,m,t,K,kind,floored,lost", [
     (16, 40, 16, 25, "serve_cache", (), ()),         # a fleet flush at Fig. 6
@@ -310,6 +365,9 @@ from repro_torch.kernels.qgram import ops as qgram_ops  # noqa: E402
     (39, 25, 25, 21, 24, 12, (), 0.0, "small"),          # the centre's fit call
     (2, 33, 33, 21, 24, 12, (), 0.2, "small"),            # one past the small tile
     (40, 25, 1000, 21, 24, 12, (), 0.0, "flat"),          # broadcast's fit call
+    (39, 25, 1000, 21, 16, 12, (), 0.0, "flat"),          # center direct's fit call
+    (40, 25, 1000, 21, 40, 12, (), 0.0, "flat"),          # broadcast direct's D, W = 2
+    (40, 25, 128, 21, 40, 12, (), 0.0, "small"),          # broadcast direct's request E
     (300, 32, 65, 21, 24, 12, (3,), 0.1, "flat"),          # one column past the flat tile
     (3, 200, 1001, 21, 100, 12, (0, 5, 20), 0.3, "wide"),  # odd p, W = 4, width 0, masked
     (200, 65, 129, 21, 24, 12, (), 0.0, "wide"),          # one past the wide tile

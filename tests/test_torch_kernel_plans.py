@@ -80,7 +80,8 @@ def test_gram_splits_cover_k_exactly(n, p, d, sms):
         assert pl.k_per_split >= 256  # no split shorter than its minimum but the last
 
 
-@pytest.mark.parametrize("n,p", [(128, 25), (25, 25)])
+@pytest.mark.parametrize("n,p", [(128, 25), (25, 25),
+                                 (25, 1000), (25, 128)])  # center direct: fit, request
 def test_gram_request_and_fit_products_are_one_tile_no_split(n, p):
     plans = {gram_plan(n, p, 21, sms) for sms in (132, 114)}
     assert plans == {Plan("small", 1, gram_plan(n, p, 21).k_per_split)}
@@ -302,6 +303,10 @@ QGRAM_SHAPES = [  # (m, n, p, d, W words a row or None for int32 codes, C table 
     (39, 25, 25, 21, 1, 4096),       # the centre's fit call (R = 24)
     (39, 32, 25, 21, None, 4096),    # the wire's qgram (25 rows + 7 of -1)
     (40, 25, 1000, 21, 1, 4096),     # broadcast's fit call
+    (39, 25, 1000, 21, 1, 4096),     # center direct's fit call (Y = X_recon)
+    (39, 25, 128, 21, 1, 4096),      # center direct's request
+    (40, 25, 1000, 21, 2, 4096),     # broadcast direct's fit call D at R = 40
+    (40, 25, 128, 21, 2, 4096),      # broadcast direct's request E at R = 40
     (40, 1000, 4449, 21, 1, 4096),   # 40 x 1000 rows against 4449 queries
     (1, 1024, 1024, 128, None, 256),  # the kernels bench shape
     (2, 32, 32, 21, 1, 4096),        # the small tile whole
@@ -361,6 +366,10 @@ def test_qgram_plan_depends_only_on_its_arguments(m, n, p, d, W, C):
     (39, 25, 25, 21, 1, 4096, "small"),        # the centre's fit call
     (39, 32, 25, 21, None, 4096, "small"),     # the wire's qgram
     (40, 25, 1000, 21, 1, 4096, "flat"),       # broadcast's fit call
+    (39, 25, 1000, 21, 1, 4096, "flat"),       # center direct's fit call
+    (39, 25, 128, 21, 1, 4096, "small"),       # center direct's request
+    (40, 25, 1000, 21, 2, 4096, "flat"),       # broadcast direct's fit call D
+    (40, 25, 128, 21, 2, 4096, "small"),       # broadcast direct's request E
     (40, 1000, 4449, 21, 1, 4096, "wide"),     # the wide output
     (1, 1024, 1024, 128, None, 256, "long"),   # the kernels bench shape
     (300, 32, 65, 21, 1, 4096, "flat"),
