@@ -28,7 +28,13 @@ into a pass):
    ``quant_encode`` / ``quant_decode`` bitwise at the kernels bench shape
    (n = 1024, d = 128, Algorithm-1 rates at 4 d bits, max 8), a 4096-edge
    row, a ragged shape with NaN, +-inf, on-edge symbols and rate-0 dims,
-   and bits = 0, decode also at -1 and >= C; encode also on the tables
+   and bits = 0, decode also at -1 and >= C (INT32_MAX among them) and at
+   each ``decode_plan`` variant's edges (flat at 64 x 128, the tile at
+   65 x 128, 64-row tiles at 33761 x 33, d = 1), through views with a
+   storage offset or 4 bytes past a 16-byte boundary and on a table of
+   NaN, +-inf and -0.0 (bit for bit), timed also at 65536 x 128 and with a
+   256-entry row, each ``[time]`` and ``[kernel]`` line naming the plan;
+   encode also on the tables
    of ``ENCODE_TABLE_KINDS`` (a decreasing row, a NaN edge, duplicates,
    -0.0 beside +0.0, +-inf edges) at E = 128 and at E = 4096 with
    n = 1024, and timed at n = 1024 against a 4096-edge row; ``qgram`` within TOL at
@@ -380,8 +386,8 @@ def main():
         ENCODE_TABLE_KINDS, encode_operands, qgram_operands, quant_operands,
     )
     from repro_torch.kernels.quant.ops import (
-        build_scaled_tables, decode, decode_cuda, decode_plain, encode, encode_cuda,
-        encode_plain,
+        build_scaled_tables, decode, decode_cuda, decode_plain, decode_plan, encode,
+        encode_cuda, encode_plain,
     )
     from repro_torch.kernels.decode_attn.cases import decode_attn_operands
     from repro_torch.kernels.decode_attn.ops import decode_attn_cuda, decode_attn_plain
@@ -781,6 +787,10 @@ def main():
         key = ((lead * d + j) * C + codes.long())[inside]
         return int(torch.unique(key).numel()), inside
 
+    def decode_plan_str(n, d, C):
+        pl = decode_plan(n, d, C, sms)
+        return pl.variant + (f" {pl.bn}x{pl.bd}" if pl.bn else "")
+
     def time_quant(tag, x, edges, codes, cents, reps):
         enc = {"ms": device_ms(lambda: encode_cuda(x, edges), reps),
                "plain_ms": device_ms(lambda: encode_plain(x, edges), reps),
@@ -795,11 +805,13 @@ def main():
         n, d = codes.shape
         dec["bound_ms"], dec["bound_by"] = bound(
             4 * (2 * n * d + looked_up(codes, cents.shape[1])[0]), 0)
+        dec["plan"] = decode_plan_str(n, d, cents.shape[1])
         for name, r, lib in (("quant_encode", enc, "torch.searchsorted"),
                              ("quant_decode", dec, "torch.gather")):
             print(f"[time]   {name:13s} {tag:44s} kernel {r['ms']:.4f} ms  plain "
                   f"{r['plain_ms']:.4f} ms  {lib} {r['library_ms']:.4f} ms  bound "
-                  f"{r['bound_ms']:.7f} ms ({r['bound_by']})", flush=True)
+                  f"{r['bound_ms']:.7f} ms ({r['bound_by']})"
+                  + (f"  plan {r['plan']}" if "plan" in r else ""), flush=True)
         print(f"[time]   quant_encode  {tag:44s} torch.searchsorted gives the same codes: "
               f"{same}", flush=True)
         return enc, dec
@@ -809,22 +821,24 @@ def main():
                                             device=dev, **kw)
         codes, again = encode_cuda(x, edges), encode_cuda(x, edges)
         want = encode_plain(x, edges)
-        probe = codes.clone()  # and the -1 sentinel and a code past the table
+        probe = codes.clone()  # and the -1 sentinel and codes past the table
         probe[0] = -1
         probe[-1] = cents.shape[1] + 3
+        probe[n // 2, d // 2] = 2**31 - 1
         xhat, xhat2 = decode_cuda(probe, cents), decode_cuda(probe, cents)
         want_x = decode_plain(probe, cents)
         torch.cuda.synchronize()
         e_err = float((codes.long() - want.long()).abs().max())
         d_err = float((xhat - want_x).abs().max())
         print(f"[kernel] quant_encode  {tag:44s} bitwise {torch.equal(codes, want)}  "
-              f"| quant_decode bitwise {torch.equal(xhat, want_x)} (incl. -1 and >= C)",
-              flush=True)
+              f"| quant_decode bitwise {torch.equal(xhat, want_x)} (incl. -1 and >= C; plan "
+              f"{decode_plan_str(n, d, cents.shape[1])})", flush=True)
         check(torch.equal(codes, want), f"quant_encode {tag}: codes differ from the plain version")
         check(torch.equal(codes, again), f"quant_encode {tag}: two launches differ")
         check(torch.equal(xhat, want_x) and torch.equal(xhat, xhat2),
               f"quant_decode {tag}: differs from the plain version or between launches")
-        check(not bool(xhat[0].any()) and not bool(xhat[-1].any()),
+        check(not bool(xhat[0].any()) and not bool(xhat[-1].any())
+              and not bool(xhat[n // 2, d // 2]),
               f"quant_decode {tag}: a code outside the table did not decode to 0")
         rows = {"tag": tag, "err": e_err}, {"tag": tag, "err": d_err}
         if reps:
@@ -842,6 +856,85 @@ def main():
     quant_case("bits=0: n=9 d=5, E=128 of +inf", 9, 5, 0, 8, specials=True)
     quant_case("bench: n=1024 d=128, a 4096-edge row", 1024, 128, 512, 12, reps=200,
                dominant=True)
+    # quant_decode at each plan's edges (flat up to 8192 symbols or d < 32;
+    # 32-row tiles; 64-row tiles from 16 blocks an SM), through a storage-
+    # offset view, a view 4 bytes past a 16-byte boundary (the scalar path)
+    # and a table of NaN, +-inf and -0.0: bit for bit, the same bits twice
+    def decode_case(tag, n, d, C, view=None, specials=False):
+        """Random codes over [-2, C + 2) with -1 and INT32_MAX planted."""
+        g = torch.Generator(device=dev).manual_seed(n + d + C)
+        cents = torch.randn(d, C, device=dev, generator=g)
+        if specials:
+            cents[:, :4] = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0],
+                                        device=dev)
+        rows = n + (view == "codes[1:]")
+        codes = torch.randint(-2, C + 2, (rows, d), device=dev, generator=g,
+                              dtype=torch.int32)
+        if specials:
+            codes = codes % 6
+        codes.view(-1)[::7] = -1
+        codes.view(-1)[3::11] = 2**31 - 1
+        if view == "codes[1:]":
+            codes = codes[1:]
+        elif view == "codes+4B":
+            buf = torch.empty(n * d + 1, dtype=torch.int32, device=dev)
+            buf[1:] = codes.view(-1)
+            codes = buf[1:].view(n, d)
+        elif view == "cents+4B":
+            buf = torch.empty(d * C + 1, device=dev)
+            buf[1:] = cents.view(-1)
+            cents = buf[1:].view(d, C)
+        got, again = decode_cuda(codes, cents), decode_cuda(codes, cents)
+        want = decode_plain(codes, cents)
+        torch.cuda.synchronize()
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        twice = torch.equal(got.view(torch.int32), again.view(torch.int32))
+        plan_s = decode_plan_str(n, d, C)
+        print(f"[kernel] quant_decode  {tag:44s} bitwise {same}  same bits twice {twice}  "
+              f"plan {plan_s}", flush=True)
+        check(same and twice, f"quant_decode {tag}: differs from the plain version or "
+                              "between launches")
+        results["quant_decode"].append({"tag": tag, "err": 0.0})
+
+    def decode_timed(tag, n, d, bits, max_bits, reps, **kw):
+        """The seeded bench operands' codes (an encode's: in range, as
+        torch.gather needs them) timed; bitwise with -1 and >= C planted."""
+        x, edges, cents, _ = quant_operands(n, d, bits, max_bits=max_bits, seed=n + d,
+                                            device=dev, **kw)
+        codes = encode_cuda(x, edges)
+        C = cents.shape[1]
+        probe = codes.clone()
+        probe[0, 0], probe[-1, -1], probe[n // 2, d // 2] = -1, C, 2**31 - 1
+        same = torch.equal(decode_cuda(probe, cents), decode_plain(probe, cents))
+        check(same, f"quant_decode {tag}: differs from the plain version")
+        inside = (codes >= 0) & (codes < C)
+        looked = int(torch.unique((torch.arange(d, device=dev) * C + codes.long())[inside])
+                     .numel())
+        codes64 = codes.long().T.contiguous()
+        row = {"tag": tag, "err": 0.0,
+               "ms": device_ms(lambda: decode_cuda(codes, cents), reps),
+               "plain_ms": device_ms(lambda: decode_plain(codes, cents), reps),
+               "library_ms": device_ms(lambda: torch.gather(cents, 1, codes64), reps)}
+        row["bound_ms"], row["bound_by"] = bound(4 * (2 * n * d + looked), 0)
+        print(f"[time]   quant_decode  {tag + f' (C = {C})':44s} kernel {row['ms']:.4f} ms  "
+              f"plain {row['plain_ms']:.4f} ms  torch.gather {row['library_ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.7f} ms ({row['bound_by']})  plan "
+              f"{decode_plan_str(n, d, C)}  bitwise {same}", flush=True)
+        results["quant_decode"].append(row)
+
+    decode_timed("large: n=65536 d=128, 4d bits, max 8", 65536, 128, 512, 8, 50)
+    decode_timed("bench: n=1024 d=128, a 256-entry row", 1024, 128, 512, 8, 200,
+                 dominant=True)
+    decode_case("flat's largest: n=64 d=128 C=256", 64, 128, 256)
+    decode_case("tile's smallest: n=65 d=128 C=256", 65, 128, 256)
+    decode_case("64-row tile, ragged: n=33761 d=33 C=4096", 33761, 33, 4096)
+    decode_case("d=1 n=300 C=256", 300, 1, 256)
+    decode_case("codes[1:]: n=301 d=129 C=256", 301, 129, 256, view="codes[1:]")
+    decode_case("codes 4 B past 16: n=1024 d=128 C=256", 1024, 128, 256, view="codes+4B")
+    decode_case("table 4 B past 16: n=1024 d=128 C=256", 1024, 128, 256, view="cents+4B")
+    decode_case("NaN/+-inf/-0.0 table: n=1024 d=128 C=256", 1024, 128, 256, specials=True)
+    decode_case("NaN/+-inf/-0.0 table: n=25 d=21 C=4096", 25, 21, 4096, specials=True)
+
     # tables the binary search may not take (a decreasing row, a NaN edge)
     # and ones it must count right (duplicates, -0.0 beside +0.0, +-inf),
     # at E = 128 and 4096 with n = 1024: bitwise, the same bits twice
@@ -1389,7 +1482,8 @@ def main():
     check(not bool(g_unpacked[:, n_pad:].any()), "wire: a -1 row did not give a zero row")
     # the main rows of the quantizer kernels: the wire's shapes, its largest table
     big = max(range(m_w), key=lambda i: tables[i][0].shape[1])
-    tag = f"wire: 25 x 21 vs {tables[big][0].shape[1]}-entry table"
+    tag = (f"wire: 25 x 21, {tables[big][0].shape[1]} edges / "
+           f"{wire.scaled_cents.shape[-1]} centroids a row")
     main_enc, main_dec = time_quant(tag, xs[big], tables[big][0], enc[big],
                                     wire.scaled_cents[big], 200)
     main_enc.update(tag=tag, err=0.0)

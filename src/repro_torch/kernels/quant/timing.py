@@ -1,6 +1,6 @@
-"""Device times of the ``quant_encode`` kernel at the wire's rows and the
-kernels bench shape against ``torch.searchsorted`` and the bound, on one
-card.
+"""Device times of the ``quant_encode`` and ``quant_decode`` kernels at the
+wire's rows and the kernels bench shape against ``torch.searchsorted`` /
+``torch.gather`` and the bound, on one card.
 
     python src/repro_torch/kernels/quant/timing.py [--reps 200]
 
@@ -10,10 +10,15 @@ each other on the same inputs: run it once with ``PYTHONPATH=src`` and once
 with ``PYTHONPATH=<other checkout>/src``, one after the other on one card.
 The operands are the package's seeded ``quant_operands`` (the same bits in
 both checkouts).  It prints one JSON object: the card's name and power
-limit (``nvidia-smi``), the package's path and, for each case, the edges a
-row, the kernel's and ``torch.searchsorted``'s ms (on x transposed to
-(d, n) beforehand, as it takes it), the bound's ms and what bounds it, and
-whether the kernel's codes equal the plain version's.
+limit (``nvidia-smi``), the package's path and, for each encode case, the
+edges a row, the kernel's and ``torch.searchsorted``'s ms (on x transposed
+to (d, n) beforehand, as it takes it), the bound's ms and what bounds it,
+and whether the kernel's codes equal the plain version's; for each decode
+case, the plan (``decode_plan``, where the package has one), the kernel's
+and ``torch.gather``'s ms (on int64 codes transposed to (d, n)
+beforehand), the bound's ms and what bounds it, and whether the kernel's
+values equal the plain version's bit for bit (the -1 sentinel and codes
+>= C planted).
 """
 from __future__ import annotations
 
@@ -32,11 +37,18 @@ HBM_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (data sheet): fp32 compares
 
 # (label, n, d, total bits, max bits, one dominant dimension)
-CASES = [
+ENCODE_CASES = [
     ("wire: 25 x 21, a 4096-edge row", 25, 21, 48, 12, True),
     ("wire: 25 x 21, 128 edges", 25, 21, 24, 12, False),
     ("bench: 1024 x 128, 4d bits, max 8", 1024, 128, 512, 8, False),
     ("bench: 1024 x 128, a 4096-edge row", 1024, 128, 512, 12, True),
+]
+DECODE_CASES = [
+    ("wire: 25 x 21, a 4096-entry row", 25, 21, 48, 12, True),
+    ("bench: 1024 x 128, 4d bits, max 8", 1024, 128, 512, 8, False),
+    ("bench: 1024 x 128, a 256-entry row", 1024, 128, 512, 8, True),
+    ("bench: 1024 x 128, a 4096-entry row", 1024, 128, 512, 12, True),
+    ("large: 65536 x 128, 4d bits, max 8", 65536, 128, 512, 8, False),
 ]
 
 
@@ -75,22 +87,34 @@ def bound_ms(x, edges) -> tuple[float, str]:
     return max((nbytes / HBM_BYTES * 1e3, "bytes"), (ops / FP32_FLOPS * 1e3, "operations"))
 
 
+def decode_bound_ms(codes, cents) -> tuple[float, str]:
+    """The codes read and the values written once, and each distinct
+    in-range table entry the codes look up once; no arithmetic."""
+    n, d = codes.shape
+    C = cents.shape[1]
+    inside = (codes >= 0) & (codes < C)
+    j = torch.arange(d, device=codes.device)
+    looked = int(torch.unique((j * C + codes.long())[inside]).numel())
+    return 4 * (2 * n * d + looked) / HBM_BYTES * 1e3, "bytes"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=200)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
-        print("quant_encode timing needs a CUDA card", file=sys.stderr)
+        print("quant_encode / quant_decode timing needs a CUDA card", file=sys.stderr)
         return 1
     import repro_torch
+    from repro_torch.kernels.quant import ops
     from repro_torch.kernels.quant.cases import quant_operands
-    from repro_torch.kernels.quant.ops import encode_cuda, encode_plain
+    from repro_torch.kernels.quant.ops import decode_cuda, decode_plain, encode_cuda, encode_plain
 
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    rows = []
-    for label, n, d, bits, max_bits, dominant in CASES:
+    rows, dec_rows = [], []
+    for label, n, d, bits, max_bits, dominant in ENCODE_CASES:
         x, edges, _, _ = quant_operands(n, d, bits, max_bits=max_bits, seed=n + d,
                                         dominant=dominant, device=dev)
         xt = x.T.contiguous()
@@ -103,7 +127,27 @@ def main(argv=None) -> int:
             "bound_ms": b, "bound_by": by,
             "search_steps": math.ceil(math.log2(edges.shape[1] + 1)),
         })
-    print(json.dumps({"card": card, "package": repro_torch.__file__, "cases": rows}))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, n, d, bits, max_bits, dominant in DECODE_CASES:
+        x, edges, cents, _ = quant_operands(n, d, bits, max_bits=max_bits, seed=n + d,
+                                            dominant=dominant, device=dev)
+        codes = encode_cuda(x, edges)
+        C = cents.shape[1]
+        probe = codes.clone()  # the -1 sentinel and codes past the table
+        probe[0, 0], probe[-1, -1], probe[n // 2, d // 2] = -1, C, 2**31 - 1
+        codes64 = codes.long().T.contiguous()
+        b, by = decode_bound_ms(codes, cents)
+        plan = getattr(ops, "decode_plan", None)  # an older checkout has none
+        rows_plan = plan(n, d, C, sms)._asdict() if plan else None
+        dec_rows.append({
+            "case": label, "n": n, "d": d, "C": C, "plan": rows_plan,
+            "bitwise": bool(torch.equal(decode_cuda(probe, cents), decode_plain(probe, cents))),
+            "ms": device_ms(lambda: decode_cuda(codes, cents), args.reps),
+            "library_ms": device_ms(lambda: torch.gather(cents, 1, codes64), args.reps),
+            "bound_ms": b, "bound_by": by,
+        })
+    print(json.dumps({"card": card, "package": repro_torch.__file__, "cases": rows,
+                      "decode_cases": dec_rows}))
     return 0
 
 

@@ -678,3 +678,90 @@ def test_epilogue_fleet_tenant_against_single(cuda, T, m, t, K, kind):
         assert torch.equal(got, single)  # one design: the same bits where the plans agree
     else:
         assert float(((got - single).abs() - 2 * bound).max()) <= 0
+
+
+# ---- quant_decode's plan: each variant's tile edges, views and special values ------
+
+from repro_torch.kernels.quant.ops import decode_plan  # noqa: E402
+
+INT32_MAX = 2**31 - 1
+
+
+def _decode_operands(n, d, C, seed, layout, device):
+    """codes (n, d) int32 drawn over [-2, C + 2) with -1, C, INT32_MAX and
+    INT32_MIN planted, and a (d, C) table; ``layout`` "codes[1:]" gives a
+    codes view one row in, "codes+4B" / "cents+4B" a view 4 bytes past a
+    16-byte boundary, "specials" a table with NaN, +-inf and -0.0 entries
+    that the codes look up."""
+    rng = np.random.default_rng(seed)
+    cents = rng.normal(size=(d, C)).astype(np.float32)
+    if layout == "specials":
+        for j in range(d):
+            cents[j, [0, 1, 2, 3, C - 1]] = [np.nan, np.inf, -np.inf, -0.0, np.nan]
+            cents[j, 5] = np.float32(np.frombuffer(np.uint32(0x7FC01234).tobytes(), np.float32)[0])
+    rows = n + (layout == "codes[1:]")
+    codes = rng.integers(-2, C + 2, size=(rows, d)).astype(np.int32)
+    if layout == "specials":
+        codes[:, :] = rng.choice([0, 1, 2, 3, 5, C - 1], size=codes.shape)
+    if codes.size:
+        flat = codes.reshape(-1)
+        flat[:: 7] = -1
+        flat[3:: 11] = C
+        flat[5:: 13] = INT32_MAX
+        flat[6:: 17] = -2**31
+    codes_t = torch.from_numpy(codes).to(device)
+    cents_t = torch.from_numpy(cents).to(device)
+    if layout == "codes[1:]":
+        codes_t = codes_t[1:]
+    elif layout == "codes+4B":
+        buf = torch.empty(n * d + 1, dtype=torch.int32, device=device)
+        buf[1:] = codes_t.reshape(-1)
+        codes_t = buf[1:].view(n, d)
+    elif layout == "cents+4B":
+        buf = torch.empty(d * C + 1, dtype=torch.float32, device=device)
+        buf[1:] = cents_t.reshape(-1)
+        cents_t = buf[1:].view(d, C)
+    return codes_t, cents_t
+
+
+@pytest.mark.parametrize("n,d,C,layout", [
+    (1, 21, 4096, "plain"),       # one row
+    (0, 21, 4096, "plain"),       # no row: an empty output, nothing launched
+    (1, 129, 256, "plain"),
+    (300, 1, 256, "plain"),       # d of 1, 3, 21, 129: not a multiple of the vector width
+    (300, 3, 256, "plain"),       # or of the tile
+    (300, 21, 4096, "plain"),
+    (300, 129, 256, "plain"),
+    (33, 128, 256, "plain"),      # one row past a tile of 32
+    (65, 36, 4096, "plain"),      # a multiple of 4, not of the tile's 32 dimensions
+    (1024, 128, 256, "plain"),    # the kernels bench shape
+    (1024, 129, 4096, "plain"),
+    (20000, 8, 256, "plain"),
+    (64, 128, 256, "plain"),      # 8192 symbols: the flat variant's largest call,
+    (65, 128, 256, "plain"),      # one row past it: the tile
+    (4000, 31, 256, "plain"),     # d = 31: flat; d = 32: the tile
+    (4000, 32, 256, "plain"),
+    (1000, 12, 256, "plain"),     # d = 12: flat; d = 16: the tile
+    (1000, 16, 256, "plain"),
+    (67552, 32, 256, "plain"),    # the last plan of 32-row tiles, the first of 64
+    (67584, 32, 256, "plain"),
+    (33761, 33, 4096, "plain"),   # 64-row tiles, ragged in n and d
+    (301, 129, 256, "codes[1:]"),   # a storage offset of one row
+    (1024, 128, 256, "codes+4B"),   # 16-byte vectors refused: the scalar path
+    (1024, 128, 256, "cents+4B"),
+    (25, 21, 4096, "specials"),     # NaN (two payloads), +-inf, -0.0 copied bit for bit
+    (1024, 128, 256, "specials"),
+])
+def test_quant_decode_plan_edges_bitwise(cuda, n, d, C, layout):
+    codes, cents = _decode_operands(n, d, C, seed=n + d + C, layout=layout, device=cuda)
+    before = runtime.family("quant_decode").launches
+    got, again = decode_cuda(codes, cents), decode_cuda(codes, cents)
+    torch.cuda.synchronize()
+    assert runtime.family("quant_decode").launches == before + (2 if n else 0)
+    want = decode_plain(codes, cents)
+    assert got.shape == (n, d) and got.dtype == torch.float32
+    # bit patterns, so that NaN payloads and -0.0 count
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), decode_plan(n, d, C)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    outside = (codes < 0) | (codes >= C)
+    assert not bool(got[outside].view(torch.int32).any())  # +0.0, not -0.0

@@ -459,3 +459,127 @@ def test_packed_meta_and_unpack_rules_match_pack_meta_and_unpack_codes(m, d, R, 
     np.testing.assert_array_equal(got, codes)
     np.testing.assert_array_equal(
         got, TS.unpack_codes(words, torch.from_numpy(rates), total_bits=R).numpy())
+
+
+# ---- quant_decode's plan (csrc/quant_decode.cu) ---------------------------------
+
+from repro_torch.kernels.quant import ops as quant_ops  # noqa: E402
+
+DECODE_SHAPES = [  # (n, d, C)
+    (25, 21, 4096),      # the wire's machine, its largest table
+    (1024, 128, 256),    # the kernels bench shape
+    (1024, 128, 4096),   # with a 4096-entry row
+    (65536, 128, 256),   # bytes set the time
+    (1, 1, 8),
+    (0, 21, 4096),
+    (1, 129, 256),
+    (300, 3, 256),
+    (37, 13, 4096),
+    (64, 128, 256),      # the flat variant's largest call
+    (65, 128, 256),      # one row past it
+    (4000, 31, 256),
+    (4000, 32, 256),
+    (33, 129, 4096),     # ragged rows and dimensions
+    (67552, 32, 256),    # the last plan of 32-row tiles
+    (67584, 32, 256),    # the first of 64
+    (33761, 33, 4096),
+    (40000, 21, 4096),
+    (1000, 12, 128),     # d < 16: flat
+    (1000, 16, 128),     # a multiple of 4 from 16: the tile
+    (4449, 1000, 256),
+]
+
+
+def decode_cover(n, d, pl):
+    """How often the kernel's grid writes each (row, dimension): "flat" one
+    thread a symbol over ceil(n d / 256) blocks; "tile" block (x, y) rows
+    [x bn, min(n, (x + 1) bn)) x dims [y bd, min(d, (y + 1) bd))."""
+    hits = np.zeros(n * d, int)
+    if pl.variant == "flat":
+        for b in range(math.ceil(n * d / 256)):
+            k = np.arange(b * 256, (b + 1) * 256)
+            np.add.at(hits, k[k < n * d], 1)
+        return hits.reshape(n, d)
+    hits = hits.reshape(n, d)
+    for x in range(math.ceil(n / pl.bn)):
+        for y in range(math.ceil(d / pl.bd)):
+            hits[x * pl.bn:min(n, (x + 1) * pl.bn), y * pl.bd:min(d, (y + 1) * pl.bd)] += 1
+    return hits
+
+
+@pytest.mark.parametrize("n,d,C", DECODE_SHAPES)
+@pytest.mark.parametrize("sms", [132, 114, 16])
+def test_decode_plan_covers_every_symbol_once(n, d, C, sms):
+    pl = quant_ops.decode_plan(n, d, C, sms)
+    if n * d > 2_000_000:  # the model walks every symbol: check the rows on a slice
+        n = pl.bn * 3 + 5 if pl.variant == "tile" else 5000 // d
+    assert (decode_cover(n, d, pl) == 1).all()
+
+
+@pytest.mark.parametrize("n,d,C", DECODE_SHAPES)
+def test_decode_plan_shared_memory_and_grid_within_the_card_limits(n, d, C):
+    pl = quant_ops.decode_plan(n, d, C)
+    assert pl.smem == quant_ops.decode_smem_bytes(pl.variant, pl.bn) <= 48 * 1024  # no attribute
+    if pl.variant == "flat":
+        assert (pl.bn, pl.bd) == (0, 0) and n * d < 2**31
+        assert math.ceil(n * d / 256) < 2**31
+    else:
+        assert pl.bn in quant_ops.DECODE_ROWS and pl.bd == quant_ops.DECODE_BD
+        assert math.ceil(n / pl.bn) < 2**31 and math.ceil(d / pl.bd) <= 65535
+        assert pl.bn * d < 2**31  # the tile's 32-bit offsets
+
+
+@pytest.mark.parametrize("n,d,C", DECODE_SHAPES)
+def test_decode_plan_depends_only_on_its_arguments(n, d, C):
+    first = quant_ops.decode_plan(n, d, C, 132)
+    quant_ops.decode_plan(65536, 128, 256, 16)  # another call between
+    assert quant_ops.decode_plan(n, d, C, 132) == first
+    assert quant_ops.decode_plan(n, d, C=C, sms=132) == first
+
+
+@pytest.mark.parametrize("n,d,C,variant,bn", [
+    # as timed on the card (PERF.md section 6): the wire and small calls
+    # take the flat variant, and so does d < 32 where the tile would take
+    # its 4-byte path or idle over half its columns; the bench shape and
+    # every other d the tile at every C (no table size at which staging the
+    # rows in shared memory paid), with 64 rows from 16 blocks an SM
+    (25, 21, 4096, "flat", 0),
+    (1024, 128, 128, "tile", 32),     # the bench shape's table: 4d bits, max 8
+    (1024, 128, 256, "tile", 32),
+    (1024, 128, 1024, "tile", 32),
+    (1024, 128, 4096, "tile", 32),
+    (64, 128, 256, "flat", 0),
+    (65, 128, 256, "tile", 32),
+    (40000, 21, 4096, "flat", 0),     # flat 0.00395 ms, the tile 0.00437
+    (65536, 21, 128, "flat", 0),
+    (65536, 3, 128, "flat", 0),
+    (65536, 12, 128, "flat", 0),      # flat 0.00341, the tile 0.00353
+    (65536, 16, 128, "tile", 32),     # the tile 0.00372, flat 0.00404
+    (65536, 24, 128, "tile", 32),
+    (4000, 31, 128, "flat", 0),
+    (4000, 32, 128, "tile", 32),
+    (67552, 32, 256, "tile", 32),
+    (67584, 32, 256, "tile", 64),     # 16 blocks an SM of 32-row tiles: 64 rows
+    (65536, 128, 128, "tile", 64),
+    (16384, 128, 128, "tile", 32),
+])
+def test_decode_plan_takes_the_variant_named_for_each_shape(n, d, C, variant, bn):
+    pl = quant_ops.decode_plan(n, d, C)
+    assert (pl.variant, pl.bn) == (variant, bn)
+
+
+def test_decode_plan_refuses_a_grid_past_the_card_limits():
+    with pytest.raises(ValueError, match="grid"):
+        quant_ops.decode_plan(2, 65535 * 32 + 1, 256)
+
+
+def test_decode_stage_copies_apply_to_the_shipped_source():
+    # quant/stages.py times copies of csrc/quant_decode.cu with one stage
+    # removed: each copy must still find the lines it edits
+    from repro_torch.kernels.build import CSRC
+    from repro_torch.kernels.quant import stages
+
+    src = (CSRC / "quant_decode.cu").read_text()
+    copies = stages.kernel_copies(src)
+    assert set(copies) == {"tile", "tile -code load", "tile -lookup", "tile -store", "staged"}
+    assert all(c != src for name, c in copies.items() if name != "tile")
