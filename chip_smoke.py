@@ -117,6 +117,22 @@ into a pass):
       card's.  Then the committed format-v1 checkpoint
       (``tests/fixtures/legacy_artifact``) loaded onto the card and served,
       within ``LEGACY_TOL`` of the same load on the CPU.
+   h. streaming ``update`` (``stream_phase``) on a.'s center, b.'s
+      broadcast and c.'s rBCM artifacts: eight batches of 16 fresh test
+      rows (machines 1-7, then the center; the first crosses 1000 -> 1024
+      columns, a later one 1024 -> 2048; poe's experts their own edges).
+      Checks per batch: the launches of the update and of a request after
+      it, from zero, exactly ``STREAM_LAUNCHES``; the ledgers' increments
+      the ``comm/accounting.py`` formulas as integers; ``counts`` and
+      ``cols``; the growth counter +1 at a bucket crossing and flat
+      otherwise.  After the stream: the same stream on the CPU from the
+      same checkpoint, its mu and var within ``STREAM_TOL`` of scale (the
+      factors' differences printed);
+      save -> load -> the same answers bitwise; one more update of the
+      loaded artifact equal to that of the unsaved one.  Prints update
+      p50 / p99 (host clock, synchronized) over the stream and over 32
+      in-bucket repeats, and the aten ops and device kernels of one
+      in-bucket update, after the card's name and power limit.
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -343,6 +359,198 @@ def fig6_phase(dev, n_train=None, n_test=1000, m=40, steps=150, rates=FIG6_RATES
               f"{err:.3e} (tol {tol:.1e})", flush=True)
         check(bool(torch.isfinite(a).all()) and err <= tol,
               f"legacy fixture: the {dev.type} serve disagrees with the CPU's on {name}")
+    return path_launches
+
+
+# phase h: streaming update() on a.'s, b.'s and c.'s artifacts
+# (machine, rows) of each batch: machines 1-7 in turn, then the center
+STREAM_BATCHES = tuple((j, 16) for j in (1, 2, 3, 4, 5, 6, 7, 0))
+# the launches of one update and of one request after it, from zero:
+# {kernel: count}, every other kernel 0.  The center's new cross-gram
+# k(Xc, X̂_new) is one gram launch; broadcast's products against the shard
+# bases stay a batched matmul (the reference's einsum) and poe's gram is
+# the plain one, as the reference's updates run outside any kernel
+STREAM_LAUNCHES = {
+    "center": ({"gram": 1}, {"gram": 1}),
+    "broadcast": ({}, {"gram": 1, "epilogue": 1}),
+    "poe-rbcm": ({}, {"gram": 1}),
+}
+# the card's streamed answers against the CPU's (the same checkpoint, the
+# same stream, plain versions), max |diff| per output as a fraction of
+# max(1, max |CPU value|).  Both devices recompute the factors in float32:
+# alpha's woodbury solve divides a cancelling difference by s2 and the
+# serve's projector P = (U - U M^{-1} U) / s2 cancels again, so the two
+# devices' rounding of the new W columns (another matmul and triangular
+# solve; W 5e-7 to 1.4e-6 apart) reaches walpha at up to 4.7e-4.  Read on
+# the H100: center mu 1.08e-4, var 6.93e-4; broadcast 9.3e-5, 2.4e-4; rBCM
+# 9.7e-7, 8.9e-8 (before the stream the same checkpoint's answers: up to
+# 2.7e-4, the serve alone); the limit keeps a margin of seven
+STREAM_TOL = 5e-3
+STREAM_STEADY = 32  # repeated in-bucket updates of the last state, timed
+
+
+def _op_counts(fn):
+    """(aten ops dispatched, device kernels run) by one call of ``fn``: a
+    TorchDispatchMode count and the profiler's CUDA events (0 off the card)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return Count.n, kernels
+
+
+def stream_phase(dev, arts, X_new, y_new, X_q, batch=128):
+    """Streaming ``update`` on each fitted artifact of ``arts`` ({name: art
+    on ``dev``}): the batches of STREAM_BATCHES (rows of ``X_new``/``y_new``
+    in turn), each update's and each following request's launches read
+    from zero and held to STREAM_LAUNCHES, the ledgers' increments to the
+    accounting formulas, ``counts``/``cols``, the growth counter to the
+    bucket crossings; the same stream applied on the CPU to the same
+    checkpoint, its answers at ``X_q`` against the card's (STREAM_TOL);
+    save -> load -> the same answers bitwise, and one more
+    update of the loaded artifact equal to that of the unsaved one.
+    Prints update p50 / p99 (host clock, synchronized) over the stream and
+    over STREAM_STEADY in-bucket repeats, and the aten ops and device
+    kernels of one in-bucket update.  Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.accounting import CRC_BITS, payload_row_bits
+    from repro_torch.core import DistributedGP
+    from repro_torch.core.protocols.base import update_growth_count
+    from repro_torch.kernels import runtime
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    runtime.families()
+    reqs = [X_q[i:i + batch] for i in range(0, X_q.shape[0], batch)]
+    path_launches = {}
+
+    def serve(est, art):
+        out = [est.predict(art, xb) for xb in reqs]
+        return torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+
+    def counters(art):
+        return (art.lengths, int(art.stream.cols), art.wire_bits, art.payload_bits,
+                art.integrity_bits)
+
+    for name, art in arts.items():
+        est, cpu = DistributedGP(art.config, device=dev), DistributedGP(art.config, device="cpu")
+        want_update, want_request = STREAM_LAUNCHES[name]
+        ckpt = ROOT / "build" / f"chip_smoke_stream_{name.split('-')[0]}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        est.save(art, str(ckpt))
+        art_c = cpu.load(str(ckpt))
+        base = [(a.cpu() - b).abs().max() for a, b in zip(serve(est, art), serve(cpu, art_c))]
+        d = art.data["Xs" if "Xs" in art.data else "X_recon"].shape[-1]
+        rates = None if art.wire is None else art.wire.rates.cpu()
+        center = art.block_order[0] if art.block_order else None
+        runtime.reset_launches()
+        times, row = [], 0
+        for j, n in STREAM_BATCHES:
+            Xb, yb = X_new[row:row + n], y_new[row:row + n]
+            row += n
+            before, g0 = counters(art), update_growth_count(art.protocol)
+            crossing = before[1] + n > int(art.y.shape[-1])
+            l0 = runtime.launches()
+            sync()
+            t = time.perf_counter()
+            art = est.update(art, Xb, yb, machine=j)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            grew = update_growth_count(art.protocol) - g0
+            l1 = runtime.launches()
+            _launch_check(f"stream {name} update (machine {j})",
+                          {k: l1[k] - l0[k] for k in l1}, want_update)
+            est.predict(art, reqs[0])
+            sync()
+            l2 = runtime.launches()
+            _launch_check(f"stream {name} request after an update",
+                          {k: l2[k] - l1[k] for k in l2}, want_request)
+            art_c = cpu.update(art_c, Xb, yb, machine=j)
+            after = counters(art)
+            sends = rates is not None and j != center
+            wire = int(rates[j].sum()) * n if sends else 0
+            payload = payload_row_bits(art.bits_per_sample, d, art.max_bits) * n if sends else 0
+            check(tuple(a - b for a, b in zip(after[2:], before[2:]))
+                  == (wire, payload, CRC_BITS * n if sends else 0),
+                  f"stream {name}: ledger increments {after[2:]} - {before[2:]} are not the "
+                  f"accounting formulas' ({wire}, {payload}, ...)")
+            check(after[1] == before[1] + n and after[0][j] == before[0][j] + n
+                  and all(a == b for q, (a, b) in enumerate(zip(after[0], before[0])) if q != j),
+                  f"stream {name}: counts/cols {after[:2]} after {before[:2]} + {n} at {j}")
+            check(grew == int(crossing),
+                  f"stream {name}: the growth counter moved {grew} at a batch that "
+                  f"{'crossed' if crossing else 'did not cross'} a bucket edge")
+            check(counters(art_c) == after, f"stream {name}: the CPU's counters differ")
+        path_launches[f"stream {name}"] = runtime.launches()
+        mu, var = serve(est, art)
+        mu_c, var_c = serve(cpu, art_c)
+        rel = {k: float((v.cpu() - art_c.factors[k]).abs().max()
+                        / max(1.0, float(art_c.factors[k].abs().max())))
+               for k, v in art.factors.items()}
+        print(f"[stream] {name}: card vs CPU factors after the stream, max |diff| / max(1, "
+              f"max |CPU|): " + "  ".join(f"{k} {v:.2e}" for k, v in sorted(rel.items())),
+              flush=True)
+        errs = []
+        for label, a, b, b0 in (("mu", mu, mu_c, base[0]), ("var", var, var_c, base[1])):
+            scale = max(1.0, float(b.abs().max()))
+            err = float((a.cpu() - b).abs().max())
+            errs.append((label, err, scale, bool(torch.isfinite(a).all())))
+            print(f"[stream] {name}: card vs CPU after {len(STREAM_BATCHES)} updates: {label} "
+                  f"max |diff| {err:.3e} = {err / scale:.2e} of scale {scale:.3f} (before the "
+                  f"stream {float(b0):.3e}; tol {STREAM_TOL:.0e} of scale)", flush=True)
+        for label, err, scale, finite in errs:
+            check(finite and err <= STREAM_TOL * scale,
+                  f"stream {name}: the card's streamed {label} differs from the CPU's by {err}")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        est.save(art, str(ckpt))
+        back = est.load(str(ckpt))
+        shutil.rmtree(ckpt, ignore_errors=True)
+        got = serve(est, back)
+        check(torch.equal(got[0], mu) and torch.equal(got[1], var),
+              f"stream {name}: the loaded streamed artifact answers differently")
+        j, n = STREAM_BATCHES[0]
+        Xb, yb = X_new[row:row + n], y_new[row:row + n]
+        more, more_back = est.update(art, Xb, yb, machine=j), est.update(back, Xb, yb, machine=j)
+        check(counters(more_back) == counters(more)
+              and counters(more_back)[1] == counters(art)[1] + n
+              and all(torch.equal(a, b) for a, b in zip(serve(est, more_back), serve(est, more))),
+              f"stream {name}: an update after the load does not continue the stream")
+        steady = []
+        for _ in range(STREAM_STEADY):
+            sync()
+            t = time.perf_counter()
+            est.update(art, Xb, yb, machine=j)
+            sync()
+            steady.append((time.perf_counter() - t) * 1e3)
+        ops, kernels = _op_counts(lambda: est.update(art, Xb, yb, machine=j))
+        K = art.factors["L_M" if "L_M" in art.factors else "L"].shape[-1]
+        print(f"[stream] {name}: {len(STREAM_BATCHES)} updates of {n} rows, cols "
+              f"{int(arts[name].stream.cols)} -> {int(art.stream.cols)} (capacity "
+              f"{int(art.y.shape[-1])}), ledgers wire {art.wire_bits} payload "
+              f"{art.payload_bits} integrity {art.integrity_bits}; update p50 "
+              f"{np.percentile(times, 50):.3f} ms p99 {np.percentile(times, 99):.3f} ms over "
+              f"the stream, in-bucket p50 {np.percentile(steady, 50):.3f} ms p99 "
+              f"{np.percentile(steady, 99):.3f} ms over {STREAM_STEADY} (host clock, "
+              f"synchronized); one in-bucket update: {ops} aten ops, {kernels} device "
+              f"kernels (factor side {K}); loaded == saved (bitwise), a further update "
+              f"continues the stream; launches {path_launches[f'stream {name}']}", flush=True)
     return path_launches
 
 
@@ -1547,6 +1755,19 @@ def main():
     t0 = time.perf_counter()
     path_launches.update(fig6_phase(dev))
     print(f"[fig6] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # h. streaming update() on a.'s, b.'s and c.'s artifacts: eight batches of
+    # 16 fresh test rows (disjoint from the queries), machines 1-7 then the center
+    t0 = time.perf_counter()
+    n_stream = sum(n for _, n in STREAM_BATCHES) + STREAM_BATCHES[0][1]
+    print(f"[stream] {smi}", flush=True)
+    path_launches.update(stream_phase(
+        dev, {"center": center["art"], "broadcast": bcast["art"], "poe-rbcm": rbcm["art"]},
+        X_te[2048:2048 + n_stream], y_te[2048:2048 + n_stream], X_te[:1024]))
+    for name, (_, per_request) in STREAM_LAUNCHES.items():
+        check(all(path_launches[f"stream {name}"][k] > 0 for k in per_request),
+              f"stream {name}: a kernel of the path never launched")
+    print(f"[stream] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"

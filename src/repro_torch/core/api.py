@@ -10,6 +10,7 @@
     bc = DistributedGP(DGPConfig(protocol="broadcast", fusion="kl", gram_backend="pallas"))
     rbcm = DistributedGP(DGPConfig(protocol="poe", fusion="rbcm", gram_backend="pallas"))
     mu, var = bc.predict(bc.fit(X, y, m=40), X_query, available=alive)  # (m,) mask
+    art2 = est.update(art, X_new, y_new, machine=3)  # stream in; art unchanged
     est.save(art, "ckpt/")             # est.load("ckpt/") serves identically
 
 The estimator runs on ``device`` — the CUDA card unless the caller passes
@@ -57,7 +58,9 @@ class DistributedGP:
 
         Pass the pooled dataset ``(X, y, m)`` — split uniformly at random
         across ``m`` machines by ``generator`` (seed 0 when None) — or
-        ``parts``, a list of per-machine ``(X_j, y_j)`` shards."""
+        ``parts``, a list of per-machine ``(X_j, y_j)`` shards.
+        ``impl="host"`` returns the serial oracle model instead (same
+        ``predict`` surface, no artifact, no streaming)."""
         if parts is None:
             if X is None or y is None or m is None:
                 raise ValueError("fit() needs either (X, y, m) or parts=[(X_j, y_j), ...]")
@@ -73,13 +76,23 @@ class DistributedGP:
         """Serve one query batch: (mean, var) at ``X_star`` from the cached
         factors, on the artifact's device.  ``available``: optional (m,)
         machine-availability mask; the broadcast and poe fusions
-        renormalize over the surviving machines."""
-        return _base.predict(art, X_star, available)
+        renormalize over the surviving machines.  An ``impl="host"``
+        oracle model answers through its own ``predict``."""
+        if isinstance(art, FittedProtocol):
+            return _base.predict(art, X_star, available)
+        return art.predict(X_star, available)
 
-    def update(self, art, X_new, y_new, machine: int = 0):
-        raise NotImplementedError(
-            "streaming update() is not ported yet (queue 1, slice 3 in ROADMAP.md)"
-        )
+    def update(self, art: FittedProtocol, X_new, y_new, machine: int = 0) -> FittedProtocol:
+        """Stream new points arriving at ``machine`` into a fitted artifact
+        (frozen codebooks, rank-k factor growth) and return the new
+        artifact; ``art`` is unchanged — see
+        :func:`~repro_torch.core.protocols.base.update`."""
+        if not isinstance(art, FittedProtocol):
+            raise TypeError(
+                "update() needs a FittedProtocol artifact (impl='host' oracle "
+                "models do not support streaming)"
+            )
+        return _base.update(art, X_new, y_new, machine)
 
     def health(self, art, available=None):
         raise NotImplementedError(

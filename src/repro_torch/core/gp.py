@@ -28,6 +28,7 @@ __all__ = [
     "gram_fn",
     "posterior_factors",
     "posterior_apply",
+    "posterior_from_gram",
     "nlml_from_gram",
     "make_adam_step",
     "train_gp",
@@ -150,6 +151,14 @@ def posterior_apply(factors, G_star_n, g_star_star):
     V = torch.linalg.solve_triangular(factors["L"], G_star_n.mT, upper=False)
     var = g_star_star - torch.sum(V**2, dim=-2)
     return mean, torch.clamp(var, min=1e-12)
+
+
+def posterior_from_gram(G, G_star_n, g_star_star, y, noise_var):
+    """Posterior mean/variance from gram blocks (paper eqs. 2-3, eq. 3's
+    sign typo fixed): :func:`posterior_factors` then
+    :func:`posterior_apply`.  G (n, n), G_star_n (t, n), g_star_star (t,),
+    y (n,); ``noise_var`` a scalar or per point (n,)."""
+    return posterior_apply(posterior_factors(G, y, noise_var), G_star_n, g_star_star)
 
 
 def nlml_from_gram(G, y, noise_var):

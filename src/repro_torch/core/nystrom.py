@@ -6,9 +6,14 @@ plus the quantization-estimated cross blocks), approximate
 ``Ghat = G_NK G_KK^{-1} G_KN`` and serve its GP posterior in woodbury form,
 factorized once at fit time.  ``exact_diag=`` pins the completion's
 diagonal to the exact prior variances (the FITC correction), and
-:func:`nystrom_cross` maps test points through the same completion.  The
-streaming Cholesky updates
-(``chol_update*``/``chol_append*``) come with the streaming slice.
+:func:`nystrom_cross` maps test points through the same completion.
+
+Streaming ``update`` grows the cached factors without refactorizing them:
+:func:`chol_update` / :func:`chol_update_rank` take the woodbury core
+``L_M`` through rank-1 Givens sweeps, and :func:`chol_append` /
+:func:`chol_append_at` border a dense factor with new rows, factorizing
+only the new Schur block.  Each takes leading batch axes, so broadcast's m
+views or poe's m experts grow in one call.
 """
 from __future__ import annotations
 
@@ -26,6 +31,11 @@ __all__ = [
     "nystrom_apply",
     "nystrom_serve_cache",
     "nystrom_apply_cached",
+    "nystrom_posterior",
+    "chol_update",
+    "chol_update_rank",
+    "chol_append",
+    "chol_append_at",
 ]
 
 
@@ -153,3 +163,89 @@ def nystrom_apply_cached(factors, G_star_K, g_star_star, noise_var):
     P = (U - U @ _cho_solve(Lm, U)) / s2  # (K, K)
     var = g_star_star - torch.sum(B * (P @ B), dim=-2)
     return mean, torch.clamp(var, min=1e-12)
+
+
+def nystrom_posterior(G_KK, G_KN, y, noise_var, G_star_K, g_star_star):
+    """GP posterior with the Nyström gram in O(N K^2) woodbury form:
+    :func:`nystrom_factors` then :func:`nystrom_apply` — the host oracles'
+    one-shot predictive.  (The reference's ``exact_diag=`` branch hands the
+    (t, K) cross-gram to an (N, N) dense posterior, which fails unless
+    K == N, and no caller passes it; the port leaves it out.  The FITC
+    predictive goes through ``nystrom_cross`` and the dense posterior.)"""
+    f = nystrom_factors(G_KK, G_KN, y, noise_var)
+    return nystrom_apply(f, G_star_K, g_star_star, noise_var)
+
+
+# --------------------------------------------------------------------------
+# streaming factor maintenance (base.update)
+# --------------------------------------------------------------------------
+
+
+def _givens_sweep_(L, x):
+    """chol(L L^T + x x^T) IN PLACE in ``L`` (and ``x`` used up): the classic
+    Givens sweep, column by column, O(K^2).  Batched over leading axes:
+    L (..., K, K), x (..., K).  Column k rotates (L[k, k], x[k]) onto the
+    diagonal and carries the rotation down the rows below k, as the
+    reference's sweep does with its ``where(idx > k, ...)`` masks."""
+    K = L.shape[-1]
+    for k in range(K):
+        Lkk, xk = L[..., k, k], x[..., k]
+        r = torch.sqrt(Lkk * Lkk + xk * xk)
+        c, s = (r / Lkk)[..., None], (xk / Lkk)[..., None]
+        col, xb = L[..., k + 1:, k], x[..., k + 1:]
+        newcol = (col + s * xb) / c
+        x[..., k + 1:] = c * xb - s * newcol
+        L[..., k + 1:, k] = newcol
+        L[..., k, k] = r
+    return L
+
+
+def chol_update(L, x):
+    """Rank-1 Cholesky update chol(L L^T + x x^T) in O(K^2) — the Givens
+    sweep on copies (the inputs are unchanged).  L (..., K, K), x (..., K)."""
+    return _givens_sweep_(L.clone(), x.clone())
+
+
+def chol_update_rank(L, V):
+    """Rank-k update chol(L L^T + V V^T): one rank-1 sweep per column of V
+    (..., K, n_new) in turn — O(n_new K^2), never refactorizes the K x K.
+    Batched: broadcast's m views are one sweep per column, not m."""
+    L = L.clone()
+    for i in range(V.shape[-1]):
+        _givens_sweep_(L, V[..., i].clone())
+    return L
+
+
+def chol_append(L, C_on, C_nn):
+    """Grow a Cholesky factor by appended rows/cols WITHOUT refactorizing the
+    existing block: given L = chol(A) and the bordered matrix
+    [[A, C_on], [C_on^T, C_nn]], return its (n+k, n+k) factor
+    [[L, 0], [X^T, chol(S)]], X = L^{-1} C_on, S = C_nn - X^T X.  Only the
+    new k x k Schur block is factorized — O(n k^2 + k^3)."""
+    X = _tri_solve(L, C_on)  # (..., n, k)
+    S = C_nn - X.mT @ X
+    n, k = C_on.shape[-2:]
+    top = torch.cat([L, L.new_zeros(L.shape[:-1] + (k,))], dim=-1)
+    bot = torch.cat([X.mT, chol_safe(S)], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def chol_append_at(L, C_on, C_nn, pos: int):
+    """Capacity-aware :func:`chol_append`: the bordered rows written at slot
+    ``pos`` of a copy of the padded-capacity factor instead of growing it.
+
+    ``L`` (..., C, C) holds the live block in ``[:pos, :pos]`` and the
+    identity pattern in every padded slot (``streaming._pad_chol``);
+    ``C_on`` (..., C, k) is zero at every row >= ``pos``.  Then the forward
+    solve is exact: the padded rows of X = L^{-1} C_on come out zero, so
+    S = C_nn - X^T X is the true Schur complement of the live block, and the
+    written rows [X^T | chol(S)] are :func:`chol_append`'s in the occupied
+    slots."""
+    k = C_on.shape[-1]
+    X = _tri_solve(L, C_on)  # (..., C, k)
+    S = C_nn - X.mT @ X
+    rows = X.mT.clone()  # (..., k, C)
+    rows[..., :, pos:pos + k] = chol_safe(S)
+    out = L.clone()
+    out[..., pos:pos + k, :] = rows
+    return out

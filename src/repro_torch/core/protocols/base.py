@@ -13,21 +13,24 @@
 Artifacts are dataclasses of tensors on one device (``art.device``);
 :func:`predict` serves on that device, optionally with a machine
 availability mask (``available=``) that the fusing protocols renormalize
-over.  Streaming ``update`` (slice 3) and ``health`` (slice 4) come later;
-the ``stream`` leaves are kept so checkpoints stay format v6, and
+over, and :func:`update` streams new points in and returns a new artifact.
+``health`` (slice 4) comes later.  Checkpoints are format v6, and
 checkpoints of every older format load.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import operator
+import warnings
 
 import numpy as np
 import torch
 
 from ..gp import GPParams, prior_diag
-from ..registry import PROTOCOLS
+from ..registry import PROTOCOLS, SCHEMES
 from ..torch_scheme import words_from_uint32, words_to_uint32
+from .streaming import ensure_capacity, update_growth_count
 
 __all__ = [
     "split_machines",
@@ -39,6 +42,8 @@ __all__ = [
     "FittedProtocol",
     "fit",
     "predict",
+    "update",
+    "update_growth_count",
     "save_artifact",
     "load_artifact",
     "artifact_arrays",
@@ -74,6 +79,13 @@ def _numpy(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
+
+
+def parts_on(parts, device):
+    """Per-machine ``(X_j, y_j)`` shards (numpy or tensors) as float32
+    tensors on ``device`` (copies: the caller's arrays stay untouched)."""
+    to = lambda a: torch.as_tensor(np.array(_numpy(a), np.float32), device=device)
+    return [(to(X), to(y)) for X, y in parts]
 
 
 def split_machines(X, y, m: int, generator: torch.Generator | None = None):
@@ -232,17 +244,27 @@ class FittedProtocol:
     def rows_demoted(self) -> int:
         return int(self.stream.rows_demoted)
 
+    def update(self, X_new, y_new, machine: int = 0) -> "FittedProtocol":
+        """Stream in new points — see :func:`update`."""
+        return update(self, X_new, y_new, machine)
 
-def fit(parts, cfg, params: GPParams | None = None, device=None) -> FittedProtocol:
+
+def fit(parts, cfg, params: GPParams | None = None, device=None):
     """Run the configured protocol once on ``device`` (the card when None)
     and return the serving artifact (the engine under
-    ``DistributedGP.fit``)."""
-    if cfg.impl != "batched":
+    ``DistributedGP.fit``).  ``impl="host"`` returns the protocol's serial
+    oracle model instead (same ``.predict`` surface, no artifact)."""
+    if cfg.impl == "mesh":
         raise NotImplementedError(
-            f'impl={cfg.impl!r} is not ported yet (the port runs impl="batched"; '
-            "the mesh substrate is queue 1, slice 7 in ROADMAP.md)"
+            'impl="mesh" is not ported yet (the mesh substrate is queue 1, '
+            "slice 7 in ROADMAP.md)"
         )
-    return PROTOCOLS.get(cfg.protocol).fit(parts, cfg, params, resolve_device(device))
+    spec = PROTOCOLS.get(cfg.protocol)
+    if cfg.impl == "host":
+        if spec.fit_host is None:
+            raise NotImplementedError(f"protocol {cfg.protocol!r} has no host oracle")
+        return spec.fit_host(parts, cfg, params, resolve_device(device))
+    return spec.fit(parts, cfg, params, resolve_device(device))
 
 
 def _availability(art: FittedProtocol, available):
@@ -295,6 +317,111 @@ def _predict_impl(art: FittedProtocol, X_star, avail=None):
     mu = torch.where(ok, mu, torch.zeros_like(mu))
     var = torch.where(ok, var, g_ss + noise)  # degrade to the prior, not NaN
     return mu, var
+
+
+# --------------------------------------------------------------------------
+# update: streaming append by rank-k factor growth
+# --------------------------------------------------------------------------
+
+
+def _machine_index(machine, m: int) -> int:
+    """The update's machine index as a python int in [0, m): an int or a
+    0-d integer tensor (the reference traces it; here both are the same
+    thing)."""
+    j = operator.index(machine.item() if isinstance(machine, torch.Tensor) else machine)
+    if not 0 <= j < m:
+        raise ValueError(f"machine {j} out of range (m={m})")
+    return j
+
+
+def update(art: FittedProtocol, X_new, y_new, machine: int = 0) -> FittedProtocol:
+    """Stream (X_new, y_new) arriving at ``machine`` into a fitted artifact.
+
+    The fit-once economics: machine ``machine``'s FROZEN scheme state (the
+    codebooks and decorrelating transform of the fit) re-encodes only the
+    new rows, and the ledgers are charged the frozen rate — no scheme
+    refit, no new side info.  The cached factors then grow by rank-k
+    updates (``nystrom.chol_update_rank`` for the Nyström woodbury core,
+    ``nystrom.chol_append_at`` for dense factors), written at the
+    occupied-column cursor of the capacity-padded buffers
+    (:mod:`.streaming`), which grow only when a batch crosses a bucket's
+    edge.  Returns a NEW artifact; the input's tensors are unchanged.
+
+    Center: points landing on the center are exact and cost 0 bits (the
+    rank-K Nyström basis stays fixed either way).  Broadcast: ``nystrom``
+    views only.  PoE: the points extend ``machine``'s expert (zero rate).
+    A machine that transmitted no rows at fit time has no frozen codebooks
+    and is refused.  Rows with a NaN or Inf are dropped with a warning; a
+    batch with no rows left returns ``art`` itself."""
+    m = len(art.fit_lengths)
+    X_new = torch.as_tensor(X_new, dtype=torch.float32, device=art.device)
+    y_new = torch.as_tensor(y_new, dtype=torch.float32, device=art.device)
+    if X_new.dim() != 2 or y_new.dim() != 1 or y_new.shape[0] != X_new.shape[0]:
+        raise ValueError("update expects X_new (n_new, d), y_new (n_new,)")
+    j = _machine_index(machine, m)
+    if art.fit_lengths[j] == 0:
+        raise ValueError(
+            f"machine {j} transmitted no rows at fit time (dropped or fully "
+            "demoted) — it has no frozen codebooks to stream under; route the "
+            "batch to a surviving machine or refit"
+        )
+    # a NaN/Inf point would poison the factor growth and every later
+    # predict: drop hostile rows, loudly
+    finite = torch.isfinite(X_new).all(dim=1) & torch.isfinite(y_new)
+    if not bool(finite.all()):
+        warnings.warn(
+            f"update(): dropping {int((~finite).sum())} non-finite point(s) of "
+            f"{finite.numel()} (machine {j})", stacklevel=2,
+        )
+        X_new, y_new = X_new[finite], y_new[finite]
+    if X_new.shape[0] == 0:
+        return art  # nothing to append, nothing to charge
+    pre = _prepare_update(art, X_new, j)
+    art = ensure_capacity(art, X_new.shape[0])
+    return PROTOCOLS.get(art.protocol).update(art, X_new, y_new, j, pre)
+
+
+def _prepare_update(art: FittedProtocol, X_new, machine: int):
+    """What the receiving side sees of the batch: ``None`` for poe's
+    zero-rate experts (nothing crosses the wire), else ``(decoded,
+    wire_add, payload_add, integrity_add, demoted_add)`` — the center's own
+    points exact and free, a transmitting machine's through its scheme's
+    ``reencode`` (plus ``nystrom_fitc``'s 32-bit exact-|x|^2 side channel
+    per transmitted row).  Two of the reference's paths are pending: a
+    fault plan's corrupted transmission (slice 4) and the ``vq`` scheme's
+    host channel (slice 6); the config and the registry refuse both today,
+    and this refuses them again should an artifact carry one."""
+    n_new = X_new.shape[0]
+    center = art.block_order[0] if art.block_order else 0
+    is_center_point = art.protocol == "center" and machine == center
+    if is_center_point:
+        return X_new, 0, 0, 0, 0  # the center's own data is local and exact
+    if art.wire is None or art.protocol == "poe":
+        return None
+    plan = getattr(art.config, "faults", None)
+    if getattr(plan, "flip_rate", 0.0) > 0.0:
+        raise NotImplementedError(
+            "streaming a batch through a corrupted channel is not ported yet "
+            "(fault injection is queue 1, slice 4 in ROADMAP.md)"
+        )
+    spec = SCHEMES.get(art.scheme)  # a pending scheme (vq) raises naming its slice
+    if spec.reencode is None:
+        raise NotImplementedError(f"scheme {art.scheme!r} has no streaming re-encode")
+    r = spec.reencode(art, machine, X_new)
+    side = 32 * n_new if (art.protocol == "center"
+                          and art.gram_mode == "nystrom_fitc") else 0
+    return r.decoded, r.wire_bits + side, r.payload_bits + side, r.integrity_bits, 0
+
+
+def _grow_stream(s: StreamState, machine: int, n_new: int, wire=0, payload=0,
+                 integrity=0, demoted=0) -> StreamState:
+    """The stream state after ``n_new`` rows arrived at ``machine`` (new
+    tensors; ``s`` is unchanged)."""
+    counts = s.counts.clone()
+    counts[machine] += n_new
+    return StreamState(counts, s.cols + n_new, s.wire_bits + wire,
+                       s.payload_bits + payload, s.integrity_bits + integrity,
+                       s.rows_demoted + demoted)
 
 
 # --------------------------------------------------------------------------

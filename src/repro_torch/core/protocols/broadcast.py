@@ -22,24 +22,123 @@ from one more ``qgram_packed`` launch at fit time, and each request's
 products against the reconstructions E from one ``qgram_packed`` launch
 beside the ``gram`` launch; it serves through ``posterior_apply`` and the
 fusion rule, not the fused epilogue.
+
+Streaming ``update`` (``nystrom`` views only, as in the reference): the
+machine that receives a batch broadcasts its codes once; every peer's view
+gains the reconstructions as columns, the receiver's its exact rows, and
+the m views' W, L_M, alpha and fused-serve cache grow in one batched call.
+
+``impl="host"`` runs the serial oracle (:class:`HostBroadcastGP`): one
+host-side scheme fit per machine and one dense solve per view per request.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from ...comm.accounting import row_bits
-from ..gp import GPParams, kernel_from_inner, posterior_apply, posterior_factors, train_gp
+from ...comm.accounting import integrity_bits_formula, payload_bits_formula, row_bits
+from ..distortion import second_moment
+from ..gp import (
+    GPParams, gram_fn, kernel_from_inner, posterior_apply, posterior_factors,
+    posterior_from_gram, train_gp,
+)
 from ..linalg_safe import DEFAULT_JITTER
 from ..nystrom import (
-    nystrom_apply, nystrom_apply_cached, nystrom_complete, nystrom_factors,
-    nystrom_serve_cache,
+    _tri_solve, chol_update_rank, nystrom_apply, nystrom_apply_cached, nystrom_complete,
+    nystrom_factors, nystrom_kinv, nystrom_posterior, nystrom_serve_cache,
 )
 from ..registry import FUSIONS, SCHEMES, ProtocolSpec, register_protocol
+from ..schemes import PerSymbolScheme
 from .base import (
-    FittedProtocol, PaddedShards, StreamState, WireState, _mask_gram, pad_parts, params_on,
+    FittedProtocol, PaddedShards, StreamState, WireState, _grow_stream, _mask_gram, _numpy,
+    pad_parts, params_on, parts_on,
 )
 
-__all__ = []
+__all__ = ["HostBroadcastGP", "fit_broadcast_host"]
+
+
+@dataclasses.dataclass
+class HostBroadcastGP:
+    """The ``impl="host"`` oracle's fitted state: one host-side scheme fit
+    per machine, shared hypers trained at machine 0.  ``predict`` runs one
+    dense solve per machine view and fuses — the reference the batched
+    artifact is held against."""
+
+    kernel: str
+    params: GPParams
+    parts: list  # [(X_j, y_j)] as tensors on the oracle's device
+    decoded: list
+    wire_bits: int
+    gram_mode: str
+    fuse: str
+    payload_bits: int = 0
+    integrity_bits: int = 0
+
+    def predict(self, X_star, available=None):
+        m = len(self.parts)
+        k, p = gram_fn(self.kernel), self.params
+        X_star = torch.as_tensor(X_star, dtype=torch.float32, device=self.parts[0][0].device)
+        noise = torch.exp(p.log_noise)
+        g_ss = torch.diagonal(k(p, X_star, X_star))
+        mus, s2s = [], []
+        for i in range(m):
+            # view i: machine i's block exact and first, the peers' decoded
+            order = [i] + [j for j in range(m) if j != i]
+            Xv = torch.cat([self.parts[j][0] if j == i else self.decoded[j] for j in order])
+            yv = torch.cat([self.parts[j][1] for j in order])
+            Xc = Xv[: self.parts[i][0].shape[0]]
+            if self.gram_mode == "nystrom":
+                mu_i, s2_i = nystrom_posterior(k(p, Xc), k(p, Xc, Xv), yv, noise,
+                                               k(p, X_star, Xc), g_ss)
+            else:  # direct: every block from the reconstructed points
+                mu_i, s2_i = posterior_from_gram(k(p, Xv), k(p, X_star, Xv), g_ss, yv, noise)
+            mus.append(mu_i)
+            s2s.append(s2_i)
+        mus, s2s = torch.stack(mus), torch.stack(s2s)
+        spec = FUSIONS.get(self.fuse)
+        if available is None:
+            return spec.fuse(mus, s2s, g_ss + noise)
+        w = (torch.as_tensor(_numpy(available), dtype=torch.float32, device=mus.device)
+             > 0).float()
+        return spec.fuse(mus, s2s, g_ss + noise, w)
+
+
+def fit_broadcast_host(parts, cfg, params: GPParams | None, device) -> HostBroadcastGP:
+    """The serial §5.2 oracle: every machine encodes once, against the sum
+    of the others' second moments, with its own host-side scheme fit;
+    shared hypers trained on ``device`` at machine 0 on its Nyström view."""
+    parts = parts_on(parts, device)
+    m, d = len(parts), parts[0][0].shape[1]
+    S = [second_moment(X) if X.shape[0] else torch.zeros((d, d), device=device)
+         for X, _ in parts]
+    S_tot = sum(S)
+    wire, decoded = 0, []
+    for j, (Xj, _) in enumerate(parts):
+        if Xj.shape[0] == 0:
+            decoded.append(Xj)  # an empty machine sends nothing
+            continue
+        sch = PerSymbolScheme(cfg.bits_per_sample, cfg.max_bits).fit(
+            _numpy(S[j]), _numpy(S_tot - S[j]))
+        decoded.append(sch.decode(sch.encode(Xj)))
+        wire += sch.wire_bits(Xj.shape[0]) + sch.side_info_bits(d)
+    k = gram_fn(cfg.kernel)
+    X0 = torch.cat([parts[0][0]] + decoded[1:])
+    y0 = torch.cat([y for _, y in parts])
+    Xc = parts[0][0]
+
+    def gram0(p):
+        return nystrom_complete(k(p, Xc), k(p, Xc, X0))
+
+    p = train_gp(X0, y0, kernel=cfg.kernel, params=params_on(params, device),
+                 steps=cfg.steps, lr=cfg.lr, gram_override=gram0)
+    lengths = [X.shape[0] for X, _ in parts]
+    return HostBroadcastGP(
+        kernel=cfg.kernel, params=p, parts=parts, decoded=decoded, wire_bits=wire,
+        gram_mode=cfg.gram_mode, fuse=cfg.fusion,
+        payload_bits=payload_bits_formula(lengths, d, cfg.bits_per_sample, cfg.max_bits),
+        integrity_bits=integrity_bits_formula(lengths),
+    )
 
 
 def _train_inner_products(shards: PaddedShards, wire: WireState, backend: str,
@@ -307,5 +406,44 @@ def _predict_broadcast(art: FittedProtocol, X_star, sq_star, g_ss, noise, avail=
     return spec.fuse(mus, s2s, g_ss + noise, avail)
 
 
+def _update_broadcast(art: FittedProtocol, X_new, y_new, j: int, pre):
+    """Machine ``j`` broadcast its codes once: every peer's view gains the
+    reconstructions ``pre[0]`` as columns at the occupied-column cursor,
+    view j its exact rows; the rank-n_pad Nyström bases stay fixed.  The
+    m views grow in one batched call each (triangular solve, Givens sweep,
+    woodbury solve), into copies."""
+    if art.gram_mode != "nystrom":
+        raise NotImplementedError(
+            'streaming update of broadcast artifacts supports gram_mode='
+            '"nystrom" only'
+        )
+    decoded, w_add, p_add, i_add, d_add = pre
+    p = art.params
+    s2 = torch.exp(p.log_noise) + DEFAULT_JITTER
+    m = len(art.fit_lengths)
+    n_new = X_new.shape[0]
+    pos, end = int(art.stream.cols), int(art.stream.cols) + n_new
+    reps = decoded.expand(m, -1, -1).clone()
+    reps[j] = X_new
+    sq_new = torch.sum(reps**2, -1)  # (m, n_new)
+    ip_new = art.data["Xs"] @ reps.mT  # (m, n_pad, n_new), as the reference's einsum
+    G_new = kernel_from_inner(art.kernel, p, ip_new, art.data["sq_exact"], sq_new) \
+        * art.data["mask"][:, :, None]
+    y2 = art.y.clone()
+    y2[pos:end] = y_new
+    f = dict(art.factors)
+    W_new = _tri_solve(f["L_KK"], G_new)
+    f["W"] = f["W"].clone()
+    f["W"][..., pos:end] = W_new
+    f["L_M"] = chol_update_rank(f["L_M"], W_new)
+    f["alpha"] = nystrom_kinv(f["W"], f["L_M"], s2, y2.expand(m, -1))
+    if "U" in f:  # the fused serve's cache: Ainv is fixed, U and walpha follow
+        f["U"] = f["U"] + W_new @ W_new.mT
+        f["walpha"] = (f["W"] @ f["alpha"][..., None])[..., 0]
+    stream = _grow_stream(art.stream, j, n_new, w_add, p_add, i_add, d_add)
+    return dataclasses.replace(art, y=y2, factors=f, stream=stream)
+
+
 register_protocol(ProtocolSpec(name="broadcast", fit=_fit_broadcast,
-                               predict=_predict_broadcast))
+                               predict=_predict_broadcast, update=_update_broadcast,
+                               fit_host=fit_broadcast_host))

@@ -20,6 +20,16 @@ point) and ``"direct"`` (every block straight from the reconstructed
 points, a dense N x N gram).  Under ``"pallas"`` the direct mode's N x N
 inner products come from one ``gram`` and one ``qgram_packed`` launch, and
 every request's (N, t) products from one of each.
+
+Streaming ``update`` appends new points as columns of the gram (the rank-K
+basis stays the center's block): ``nystrom`` grows W and takes L_M through
+a rank-n_new Givens update, ``direct`` and ``nystrom_fitc`` border their
+dense factor.  Under ``"pallas"`` the new points' cross-gram against the
+center block is one ``gram`` launch.
+
+``impl="host"`` runs the serial oracle the batched artifact is held
+against: one host-side scheme fit per machine (``schemes.PerSymbolScheme``)
+and a :class:`CenterGP` model that refactorizes on every ``predict``.
 """
 from __future__ import annotations
 
@@ -28,19 +38,50 @@ import dataclasses
 import numpy as np
 import torch
 
-from ...comm.accounting import row_bits
+from ...comm.accounting import integrity_bits_formula, payload_bits_formula, row_bits
+from .. import quantizers as Q
+from ..distortion import second_moment
 from ..gp import (
-    GPParams, gram_fn, kernel_from_inner, posterior_apply, posterior_factors, prior_diag,
-    train_gp,
+    GPParams, gram_fn, kernel_from_inner, posterior_apply, posterior_factors,
+    posterior_from_gram, prior_diag, train_gp,
 )
+from ..linalg_safe import DEFAULT_JITTER
 from ..nystrom import (
-    nystrom_apply, nystrom_apply_cached, nystrom_complete, nystrom_complete_map,
-    nystrom_cross_mapped, nystrom_factors, nystrom_serve_cache,
+    _tri_solve, chol_append_at, chol_update_rank, nystrom_apply, nystrom_apply_cached,
+    nystrom_complete, nystrom_complete_map, nystrom_cross, nystrom_cross_mapped,
+    nystrom_factors, nystrom_kinv, nystrom_posterior, nystrom_serve_cache,
 )
 from ..registry import SCHEMES, ProtocolSpec, register_protocol
-from .base import FittedProtocol, StreamState, WireState, pad_parts, params_on
+from ..schemes import PerSymbolScheme
+from .base import (
+    FittedProtocol, StreamState, WireState, _grow_stream, _numpy, pad_parts, params_on,
+    parts_on, resolve_device,
+)
 
-__all__ = ["CenterGP"]
+__all__ = ["CenterGP", "quantize_to_center", "fit_center_host"]
+
+
+def _quantize_to_center_host(parts, bits_per_sample: int, center: int = 0,
+                             max_bits: int = Q.DEFAULT_MAX_BITS, device=None):
+    """The serial oracle's wire: a host-side :class:`PerSymbolScheme` fit per
+    machine (float64 numpy, as the reference's), its encode and decode on
+    ``device``.  Returns (X_recon, y_all, wire_bits, n_center, sq_norms)."""
+    parts = parts_on(parts, device)
+    S_c = _numpy(second_moment(parts[center][0]))
+    Xs, ys, sqs, wire = [], [], [], 0
+    for j, (Xj, yj) in enumerate(parts):
+        if j == center or Xj.shape[0] == 0:
+            Xs.append(Xj)  # empty (dropped) machines transmit nothing
+        else:
+            sch = PerSymbolScheme(bits_per_sample, max_bits).fit(
+                _numpy(second_moment(Xj)), S_c)
+            Xs.append(sch.decode(sch.encode(Xj)))
+            wire += sch.wire_bits(Xj.shape[0]) + sch.side_info_bits(Xj.shape[1])
+        ys.append(yj)
+        sqs.append(torch.sum(Xj**2, -1))
+    order = [center] + [j for j in range(len(parts)) if j != center]
+    return (torch.cat([Xs[j] for j in order]), torch.cat([ys[j] for j in order]), wire,
+            parts[center][0].shape[0], torch.cat([sqs[j] for j in order]))
 
 
 def _quantize_to_center_batched(parts, bits_per_sample: int, center: int,
@@ -59,6 +100,31 @@ def _quantize_to_center_batched(parts, bits_per_sample: int, center: int,
     y_all = torch.cat([shards.y[j, : L[j]] for j in order])
     sq_norms = torch.cat([torch.sum(shards.X[j, : L[j]] ** 2, -1) for j in order])
     return X_recon, y_all, sq_norms, shards, run, order
+
+
+def quantize_to_center(parts, bits_per_sample: int, center: int = 0, impl: str = "batched",
+                       max_bits: int = Q.DEFAULT_MAX_BITS, device=None):
+    """Run the single-center wire protocol on ``device`` (the card when
+    None); returns (X_recon, y_all, wire_bits, n_center, sq_norms).
+
+    X_recon stacks the center's exact block first, then every machine's
+    decoded points (the paper's gram-row layout); ``sq_norms`` holds each
+    point's exact |x|^2.  impl: ``"host"`` (the serial oracle) or
+    ``"batched"`` (every machine at once); both give integer-identical
+    ledgers and matching reconstructions."""
+    device = resolve_device(device)
+    if impl == "host":
+        return _quantize_to_center_host(parts, bits_per_sample, center, max_bits, device)
+    if impl == "mesh":
+        raise NotImplementedError(
+            'impl="mesh" is not ported yet (the mesh substrate is queue 1, '
+            "slice 7 in ROADMAP.md)"
+        )
+    if impl != "batched":
+        raise ValueError(f"unknown impl {impl!r}")
+    X_recon, y_all, sq_norms, shards, run, _ = _quantize_to_center_batched(
+        parts, bits_per_sample, center, max_bits, "per_symbol", device)
+    return X_recon, y_all, run.wire_bits, shards.lengths[center], sq_norms
 
 
 def _pallas_ip_rows(wire: WireState, block_order, lengths, Xc, Y, pack_bits: int):
@@ -89,10 +155,15 @@ def _pallas_ip_rows(wire: WireState, block_order, lengths, Xc, Y, pack_bits: int
 
 @dataclasses.dataclass
 class CenterGP:
-    """Fit-time builder of the center's training gram.  With the pallas
-    backend the parameter-independent inner products are computed ONCE by
-    the kernels (``_ip``) and reused by every training step, so the
-    training loop differentiates only the elementwise kernel map."""
+    """The center's training gram, and the host oracle's model.
+
+    For the batched fit: with the pallas backend the
+    parameter-independent inner products are computed ONCE by the kernels
+    (``_ip``) and reused by every training step, so the training loop
+    differentiates only the elementwise kernel map.  As the
+    ``impl="host"`` oracle (:func:`fit_center_host`): it also holds the
+    trained ``params``, the targets and the ledgers, and :meth:`predict`
+    refactorizes the gram on every call."""
 
     kernel: str
     X_recon: torch.Tensor  # center block exact, rest reconstructed
@@ -104,6 +175,11 @@ class CenterGP:
     pack_bits: int = 0
     gram_mode: str = "nystrom"
     sq_norms: torch.Tensor | None = None  # exact |x|^2 for the FITC diagonal
+    params: GPParams | None = None  # the oracle's trained hyperparameters
+    y: torch.Tensor | None = None
+    wire_bits: int = 0
+    payload_bits: int = 0
+    integrity_bits: int = 0
     _ip_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def _exact_diag(self, params: GPParams):
@@ -149,10 +225,61 @@ class CenterGP:
         diag = self._exact_diag(params) if self.gram_mode == "nystrom_fitc" else None
         return nystrom_complete(*self.gram_blocks(params), exact_diag=diag)
 
+    def predict(self, X_star, available=None):
+        """The oracle's (mean, var) at ``X_star``: the gram refactorized, the
+        test cross-covariances of the Nyström modes through the same
+        Nyström map.  ``available`` is accepted for the fusing models'
+        surface and ignored: the center holds every decoded shard."""
+        X_star = torch.as_tensor(X_star, dtype=torch.float32, device=self.X_recon.device)
+        k, p = gram_fn(self.kernel), self.params
+        g_ss = torch.diagonal(k(p, X_star, X_star))
+        noise = torch.exp(p.log_noise)
+        Xc = self.X_recon[: self.n_center]
+        if self.gram_mode == "direct":
+            return posterior_from_gram(self._gram(p), k(p, X_star, self.X_recon), g_ss,
+                                       self.y, noise)
+        G_KK, G_KN = self.gram_blocks(p)
+        G_sK = k(p, X_star, Xc)
+        if self.gram_mode == "nystrom_fitc":
+            G = nystrom_complete(G_KK, G_KN, exact_diag=self._exact_diag(p))
+            return posterior_from_gram(G, nystrom_cross(G_KK, G_KN, G_sK), g_ss, self.y,
+                                       noise)
+        return nystrom_posterior(G_KK, G_KN, self.y, noise, G_sK, g_ss)
 
-def _fit_center(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
+
+def _check_center(cfg, parts):
     if not cfg.center < len(parts):
         raise ValueError(f"center={cfg.center} out of range for m={len(parts)} machines")
+
+
+def fit_center_host(parts, cfg, params: GPParams | None, device) -> CenterGP:
+    """The serial oracle (``impl="host"``): one host-side scheme fit per
+    machine, hyperparameters trained on ``device`` on the completed gram,
+    and the :class:`CenterGP` model.  Its ledgers are the batched fit's
+    formulas."""
+    _check_center(cfg, parts)
+    X_recon, y_all, wire, K, sq_norms = _quantize_to_center_host(
+        parts, cfg.bits_per_sample, cfg.center, cfg.max_bits, device)
+    d = X_recon.shape[1]
+    lengths = [_numpy(X).shape[0] for X, _ in parts]
+    payload = payload_bits_formula(lengths, d, cfg.bits_per_sample, cfg.max_bits,
+                                   skip=cfg.center)
+    if cfg.gram_mode == "nystrom_fitc":  # the exact |x|^2 side channel: 32 bits a point
+        wire += 32 * (X_recon.shape[0] - K)
+        payload += 32 * (X_recon.shape[0] - K)
+    model = CenterGP(
+        kernel=cfg.kernel, X_recon=X_recon, n_center=K, gram_mode=cfg.gram_mode,
+        sq_norms=sq_norms, y=y_all, wire_bits=wire, payload_bits=payload,
+        integrity_bits=integrity_bits_formula(lengths, skip=cfg.center),
+    )
+    model.params = train_gp(X_recon, y_all, kernel=cfg.kernel,
+                            params=params_on(params, device), steps=cfg.steps, lr=cfg.lr,
+                            gram_override=model._gram)
+    return model
+
+
+def _fit_center(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
+    _check_center(cfg, parts)
     mode = cfg.gram_mode
     if mode not in ("nystrom", "nystrom_fitc", "direct"):
         raise ValueError(f"unknown center gram mode {mode!r}")
@@ -243,4 +370,76 @@ def _predict_center(art: FittedProtocol, X_star, sq_star, g_ss, noise, avail=Non
     return nystrom_apply(art.factors, G_sK, g_ss, noise)
 
 
-register_protocol(ProtocolSpec(name="center", fit=_fit_center, predict=_predict_center))
+def _update_center(art: FittedProtocol, X_new, y_new, j: int, pre):
+    """The streaming append: the receiver's rows ``pre[0]`` become columns
+    ``cols .. cols + n_new`` of every column-growable buffer (written into
+    copies), the factors grow without refactorizing, the ledgers take
+    ``pre``'s increments."""
+    if art.gram_backend == "pallas" and art.gram_mode != "nystrom":
+        raise NotImplementedError(
+            "streaming update of pallas-backed center artifacts supports "
+            'gram_mode="nystrom" only (direct/fitc query paths read the '
+            "fit-time wire codes, which update does not extend)"
+        )
+    decoded, w_add, p_add, i_add, d_add = pre
+    p = art.params
+    s2 = torch.exp(p.log_noise) + DEFAULT_JITTER
+    n_new = X_new.shape[0]
+    pos, end = int(art.stream.cols), int(art.stream.cols) + n_new
+    k = gram_fn(art.kernel)
+    Xc, K = art.data["Xc"], art.n_center
+    sq_new = torch.sum(decoded**2, -1)
+    sq_new_exact = torch.sum(X_new**2, -1)
+    y2 = art.y.clone()
+    y2[pos:end] = y_new
+    f = dict(art.factors)
+
+    def cross_basis():
+        """k(Xc, X̂_new) (K, n_new): one ``gram`` launch under pallas."""
+        if art.gram_backend == "pallas":
+            from ...kernels.gram.ops import gram as gram_kernel
+
+            return kernel_from_inner(art.kernel, p, gram_kernel(Xc, decoded),
+                                     art.data["sq_cols"][:K], sq_new)
+        return k(p, Xc, decoded)
+
+    if art.gram_mode == "nystrom":
+        # W gains L_KK^{-1} G_K,new at the cursor and L_M = chol(s2 I + W W^T)
+        # takes the rank-n_new update (zero padded W columns add nothing)
+        W_new = _tri_solve(f["L_KK"], cross_basis())
+        f["W"] = f["W"].clone()
+        f["W"][:, pos:end] = W_new
+        f["L_M"] = chol_update_rank(f["L_M"], W_new)
+        f["alpha"] = nystrom_kinv(f["W"], f["L_M"], s2, y2)
+        if "U" in f:  # the fused serve's cache: Ainv is fixed, U and walpha follow
+            f["U"] = f["U"] + W_new @ W_new.T
+            f["walpha"] = f["W"] @ f["alpha"]
+    else:
+        if art.gram_mode == "direct":
+            # the validity mask zeroes the cross-covariances against padded
+            # slots (k(x, 0) != 0 for SE): chol_append_at's zero-row contract
+            G_on = k(p, art.data["X_recon"], decoded) * art.data["valid"][:, None]
+            G_nn = k(p, decoded)
+        else:  # nystrom_fitc: the bordered factor through the Nyström map
+            W_new = _tri_solve(f["L_KK"], cross_basis())
+            G_on = f["W"].T @ W_new  # padded W columns are zero: zero rows
+            corr = torch.clamp(prior_diag(art.kernel, p, sq_new_exact)
+                               - torch.sum(W_new**2, 0), min=0.0)
+            G_nn = W_new.T @ W_new + torch.diag(corr)
+            f["W"] = f["W"].clone()
+            f["W"][:, pos:end] = W_new
+        G_nn = G_nn + s2 * torch.eye(n_new, dtype=G_nn.dtype, device=G_nn.device)
+        f["L"] = chol_append_at(f["L"], G_on, G_nn, pos)
+        f["alpha"] = torch.cholesky_solve(y2[:, None], f["L"])[:, 0]
+
+    data = dict(art.data)
+    for key, rows in (("X_recon", decoded), ("sq_cols", sq_new),
+                      ("sq_exact", sq_new_exact), ("valid", 1.0)):
+        data[key] = data[key].clone()
+        data[key][pos:end] = rows
+    stream = _grow_stream(art.stream, j, n_new, w_add, p_add, i_add, d_add)
+    return dataclasses.replace(art, y=y2, factors=f, data=data, stream=stream)
+
+
+register_protocol(ProtocolSpec(name="center", fit=_fit_center, predict=_predict_center,
+                               update=_update_center, fit_host=fit_center_host))

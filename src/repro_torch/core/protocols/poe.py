@@ -9,17 +9,68 @@ shared hyperparameters are trained on machine 0's local data with the
 plain gram, as in the reference; with ``gram_backend="pallas"`` the own
 blocks (fit) and every request's query products go through the ``gram``
 kernel, one launch each over all experts.
+
+Streaming ``update`` is zero-rate too: the new rows are written into every
+expert's buffer at the shared cursor but are valid on their owner's expert
+only (the others get decoupled unit rows, as fit-time padding does), and
+each expert's dense factor is bordered in one batched call.  The ledgers
+do not move.  ``impl="host"`` runs the serial oracle (:class:`HostPoEGP`).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from ..gp import GPParams, kernel_from_inner, posterior_apply, posterior_factors, train_gp
+from ..gp import (
+    GPParams, gram_fn, kernel_from_inner, posterior_apply, posterior_factors,
+    posterior_from_gram, train_gp,
+)
+from ..linalg_safe import DEFAULT_JITTER
+from ..nystrom import chol_append_at
 from ..registry import FUSIONS, ProtocolSpec, register_protocol
-from .base import FittedProtocol, StreamState, _mask_gram, pad_parts, params_on
+from .base import (
+    FittedProtocol, StreamState, _grow_stream, _mask_gram, _numpy, pad_parts, params_on,
+    parts_on,
+)
 from .broadcast import _star_exact_products
 
-__all__ = []
+__all__ = ["HostPoEGP", "fit_poe_host"]
+
+
+@dataclasses.dataclass
+class HostPoEGP:
+    """The ``impl="host"`` oracle: shared hypers trained on machine 0's
+    local data, one dense solve per expert at predict time."""
+
+    kernel: str
+    params: GPParams
+    parts: list  # [(X_j, y_j)] as tensors on the oracle's device
+    method: str
+
+    def predict(self, X_star, available=None):
+        k, p = gram_fn(self.kernel), self.params
+        X_star = torch.as_tensor(X_star, dtype=torch.float32, device=self.parts[0][0].device)
+        noise = torch.exp(p.log_noise)
+        g_ss = torch.diagonal(k(p, X_star, X_star))
+        mus, s2s = zip(*[posterior_from_gram(k(p, Xj), k(p, X_star, Xj), g_ss, yj, noise)
+                         for Xj, yj in self.parts])
+        mus, s2s = torch.stack(mus), torch.stack(s2s)
+        spec = FUSIONS.get(self.method)
+        if available is None:
+            return spec.fuse(mus, s2s, g_ss + noise)
+        w = (torch.as_tensor(_numpy(available), dtype=torch.float32, device=mus.device)
+             > 0).float()
+        return spec.fuse(mus, s2s, g_ss + noise, w)
+
+
+def fit_poe_host(parts, cfg, params: GPParams | None, device) -> HostPoEGP:
+    """Shared hypers trained on ``device`` on machine 0's local data (the
+    PoE family shares one hyperparameter set across experts)."""
+    parts = parts_on(parts, device)
+    p = train_gp(parts[0][0], parts[0][1], kernel=cfg.kernel,
+                 params=params_on(params, device), steps=cfg.steps, lr=cfg.lr)
+    return HostPoEGP(kernel=cfg.kernel, params=p, parts=parts, method=cfg.fusion)
 
 
 def _fit_poe(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
@@ -71,4 +122,35 @@ def _predict_poe(art: FittedProtocol, X_star, sq_star, g_ss, noise, avail=None):
     return spec.fuse(mus, s2s, g_ss + noise, avail)
 
 
-register_protocol(ProtocolSpec(name="poe", fit=_fit_poe, predict=_predict_poe))
+def _update_poe(art: FittedProtocol, X_new, y_new, j: int, pre=None):
+    """Machine ``j``'s own exact rows (zero rate, ``pre`` is None): written
+    into every expert's buffers at the shared cursor, valid (mask 1) on
+    expert j only, and every expert's factor bordered by
+    ``chol_append_at`` in one batched call, into copies."""
+    p = art.params
+    s2 = torch.exp(p.log_noise) + DEFAULT_JITTER
+    m = len(art.fit_lengths)
+    n_new = X_new.shape[0]
+    pos, end = int(art.stream.cols), int(art.stream.cols) + n_new
+    k = gram_fn(art.kernel)
+    valid = (torch.arange(m, device=X_new.device)[:, None] == j).float().expand(m, n_new)
+    mask = art.data["mask"]
+    data = dict(art.data)
+    for key, rows in (("Xs", X_new), ("mask", valid), ("sq_exact", torch.sum(X_new**2, -1))):
+        data[key] = data[key].clone()
+        data[key][:, pos:end] = rows
+    y2 = art.y.clone()
+    y2[:, pos:end] = valid * y_new
+    # the OLD mask is zero at the cursor and beyond, so G_on keeps
+    # chol_append_at's zero-rows-at-padded-slots contract
+    G_on = k(p, data["Xs"], X_new) * (mask[:, :, None] * valid[:, None, :])
+    G_nn = _mask_gram(k(p, X_new), valid) + s2 * torch.eye(
+        n_new, dtype=X_new.dtype, device=X_new.device)
+    L2 = chol_append_at(art.factors["L"], G_on, G_nn, pos)
+    factors = {"L": L2, "alpha": torch.cholesky_solve(y2[..., None], L2)[..., 0]}
+    return dataclasses.replace(art, y=y2, factors=factors, data=data,
+                               stream=_grow_stream(art.stream, j, n_new))
+
+
+register_protocol(ProtocolSpec(name="poe", fit=_fit_poe, predict=_predict_poe,
+                               update=_update_poe, fit_host=fit_poe_host))

@@ -1,13 +1,17 @@
-"""Capacity-padded ("bucketed") factor buffers — the padding pieces of
+"""Capacity-padded ("bucketed") factor buffers — counterpart of
 ``repro/core/protocols/streaming.py``.
 
 Every column-growable tensor of a :class:`~.base.FittedProtocol` (targets,
 factor columns, reconstruction rows, validity masks) can live at a padded
 CAPACITY — a power of two of the occupied columns, which
 ``StreamState.cols`` tracks — so that artifacts with different histories
-share one shape.  The fleet (:func:`repro_torch.core.fleet.pad_to_capacity`)
-co-buckets artifacts this way; the streaming ``update`` programs that grow
-buffers in place come with slice 3.
+share one shape.  Streaming ``update`` writes each batch at the
+occupied-column cursor of these buffers and grows them (:func:`
+ensure_capacity`) only when a batch crosses the bucket's edge, so a stream
+of n rows changes the buffers' shapes O(log n) times.  A fresh fit is
+exact-size, so its first update grows.  The fleet
+(:func:`repro_torch.core.fleet.pad_to_capacity`) co-buckets artifacts the
+same way.
 
 Padding is EXACT, not approximate:
 
@@ -25,12 +29,29 @@ The pads run on the tensors' own device (the reference pads on the host).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["next_pow2", "ensure_capacity"]
+__all__ = ["next_pow2", "ensure_capacity", "update_growth_count"]
+
+# capacity growths made by update(), per protocol (see update_growth_count)
+_GROWTHS: collections.Counter = collections.Counter()
+
+
+def update_growth_count(protocol: str = "center") -> int:
+    """How many times streaming ``update`` has grown an artifact's buffers
+    to a new capacity bucket, for a protocol — the port's counterpart of
+    the reference's ``update_trace_count``.  The reference compiles its
+    update into one jitted program whose shapes change only when a bucket
+    is crossed, so "no retrace in a bucket" is its contract.  The port
+    compiles nothing and captures no CUDA graph on this path; what a
+    retrace stood for is a change of buffer shape, and that happens only
+    here.  So consecutive in-bucket updates leave this count flat and a
+    bucket crossing adds exactly one."""
+    return _GROWTHS[protocol]
 
 
 def next_pow2(n: int) -> int:
@@ -82,13 +103,16 @@ _GROWTH = {
 
 def ensure_capacity(art, n_new: int):
     """Return ``art`` (unchanged) if ``n_new`` more columns fit the current
-    bucket, else a grown copy at the next power-of-two capacity."""
+    bucket, else a grown copy at the next power-of-two capacity (counted by
+    :func:`update_growth_count`)."""
     cols = int(art.stream.cols)
     capacity = int(art.y.shape[-1])
     need = cols + int(n_new)
     if need <= capacity:
         return art
-    return _grow(art, next_pow2(need))
+    grown = _grow(art, next_pow2(need))
+    _GROWTHS[art.protocol] += 1
+    return grown
 
 
 def _grow(art, cap: int):

@@ -1,22 +1,28 @@
 """Wire schemes — counterpart of ``repro/core/protocols/wire.py``.
 
-This slice ports ``per_symbol`` (§4.2): the decorrelating transform, greedy
+The port has ``per_symbol`` (§4.2): the decorrelating transform, greedy
 Algorithm-1 bit allocation and integer codes packed into the word plane,
-for every machine at once.  Fault injection (slice 4), the ``vq`` channel
-(slice 6) and the mesh substrate (slice 7) come later.
+for every machine at once at fit time; and, for streaming ``update``, the
+re-encode of new symbols under one machine's frozen fit-time state through
+the same plane (encode -> pack -> CRC -> unpack -> decode).  Fault
+injection (slice 4), the ``vq`` channel (slice 6) and the mesh substrate
+(slice 7) come later.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ...comm.accounting import (
-    integrity_bits_formula, payload_bits_formula, row_bits, wire_bits_formula,
+    CRC_BITS, integrity_bits_formula, payload_bits_formula, payload_row_bits, row_bits,
+    wire_bits_formula,
 )
 from .. import torch_scheme
 from ..registry import SchemeSpec, register_scheme
 from .base import PaddedShards, WireRun, WireState
 
-__all__ = ["_run_wire_protocol", "PER_SYMBOL"]
+__all__ = ["_run_wire_protocol", "Reencoded", "PER_SYMBOL"]
 
 
 def _run_wire_protocol(X, mask, total_bits: int, max_bits: int, mode: str,
@@ -63,4 +69,42 @@ def _per_symbol_run(shards: PaddedShards, bits: int, max_bits: int, mode: str,
     return WireRun(ws, int(wire), int(payload), int(integrity), shards)
 
 
-PER_SYMBOL = register_scheme(SchemeSpec(name="per_symbol", run=_per_symbol_run))
+class Reencoded(NamedTuple):
+    """What one machine sent for a streamed batch: the packed ``words``
+    (n_new, W) and their per-row ``crc`` as they crossed the wire, the
+    receiver's ``decoded`` rows (n_new, d), and the three ledger increments
+    (python ints)."""
+
+    decoded: torch.Tensor
+    words: torch.Tensor
+    crc: torch.Tensor
+    wire_bits: int
+    payload_bits: int
+    integrity_bits: int
+
+
+def _per_symbol_reencode(art, machine: int, X_new) -> Reencoded:
+    """New symbols under ``machine``'s FROZEN codebooks and transform — no
+    refit, no new side info.  They cross the same packed plane as the fit's
+    rows (encode -> pack -> CRC -> unpack -> decode), so the payload charge
+    is whole words per row, the ledger charge the frozen allocated rate,
+    and the CRC framing ``CRC_BITS`` per row.  The reference's
+    ``_per_symbol_reencode`` and ``_per_symbol_reencode_traced`` in one."""
+    w = art.wire
+    state = {k: getattr(w, k)[machine] for k in ("T", "T_inv", "sigma", "rates")}
+    n_new, d = X_new.shape
+    tables = torch_scheme.scheme_tables(art.bits_per_sample, art.max_bits, X_new.device)
+    codes = torch_scheme.encode(state, X_new, tables)
+    rbits = row_bits(art.bits_per_sample, d, art.max_bits)
+    words = torch_scheme.pack_codes(codes, state["rates"], total_bits=rbits)
+    crc = torch_scheme.crc_words(words)
+    received = torch_scheme.unpack_codes(words, state["rates"], total_bits=rbits)
+    decoded = torch_scheme.decode(state, received, tables)
+    return Reencoded(
+        decoded, words, crc, int(state["rates"].sum()) * n_new,
+        payload_row_bits(art.bits_per_sample, d, art.max_bits) * n_new, CRC_BITS * n_new,
+    )
+
+
+PER_SYMBOL = register_scheme(SchemeSpec(name="per_symbol", run=_per_symbol_run,
+                                        reencode=_per_symbol_reencode))

@@ -22,6 +22,7 @@ __all__ = [
     "gauss_bin_edges",
     "gauss_centroids",
     "unit_distortion",
+    "expected_distortion",
     "allocate_bits_greedy",
     "build_codebook_tables",
     "quantize",
@@ -58,6 +59,11 @@ def unit_distortion(rate: int) -> float:
     """e(1, R) = 1 - 2^{-R} * sum(c_i^2): MSE of quantizing a standard normal."""
     c = gauss_centroids(rate)
     return float(1.0 - np.sum(c**2) / (1 << rate))
+
+
+def expected_distortion(variance, rate: int):
+    """e(sigma^2, R) (eq. 40) — scales linearly with the variance."""
+    return variance * unit_distortion(rate)
 
 
 def allocate_bits_greedy(

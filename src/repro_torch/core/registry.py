@@ -107,20 +107,29 @@ class FusionSpec:
 class SchemeSpec:
     """A wire scheme: ``run(shards, bits, max_bits, mode, center)`` executes
     the fit-time wire protocol for every machine at once and returns a
-    :class:`~repro_torch.core.protocols.base.WireRun`."""
+    :class:`~repro_torch.core.protocols.base.WireRun`; ``reencode(art,
+    machine, X_new)`` sends new symbols under that machine's frozen
+    fit-time state for streaming ``update`` and returns a
+    :class:`~repro_torch.core.protocols.wire.Reencoded`.  (The reference
+    keeps a second, jit-traced ``reencode_traced``; the port traces
+    nothing, so one function serves every machine.)"""
 
     name: str
     run: Callable
+    reencode: Callable | None = None  # (art, machine, X_new) -> Reencoded
 
 
 @dataclasses.dataclass(frozen=True)
 class ProtocolSpec:
-    """A distributed-GP protocol: the fit/predict pair the facade
-    dispatches on."""
+    """A distributed-GP protocol: the fit/predict/update triple the facade
+    dispatches on, and ``fit_host``, the serial oracle ``impl="host"``
+    runs (a model with the same ``.predict`` surface, no artifact)."""
 
     name: str
     fit: Callable  # (parts, cfg, params, device) -> FittedProtocol
     predict: Callable  # (art, X_star, sq_star, g_ss, noise, avail) -> (mu, s2)
+    update: Callable  # (art, X_new, y_new, machine, pre) -> FittedProtocol
+    fit_host: Callable | None = None  # (parts, cfg, params, device) -> oracle model
 
 
 KERNELS = Registry("kernel")

@@ -270,9 +270,7 @@ def test_stack_rejects_nonresident_and_heterogeneous(bases):
 @pytest.mark.parametrize("kind", ["center", "fused", "poe"])
 def test_pad_to_capacity_predicts_as_unpadded_and_as_the_reference(kind, bases, tmp_path):
     """A fresh fit padded to a larger capacity keeps its answers and pads
-    exactly as the reference pads.  (Co-bucketing a padded fresh fit with a
-    STREAMED artifact, the reference's test, waits for the streaming
-    ``update`` of slice 3.)"""
+    exactly as the reference pads."""
     from repro.core.protocols import save_artifact as ref_save
     from repro_torch.checkpoint import load_artifact_arrays
     from repro_torch.core.protocols.base import artifact_arrays
@@ -297,6 +295,34 @@ def test_pad_to_capacity_predicts_as_unpadded_and_as_the_reference(kind, bases, 
         rmu, rvar = ref_predict(rfleet.pad_to_capacity(ref, cap), Xq)
     for a, b in zip(predict(padded, Xq), (rmu, rvar)):
         _close(a.numpy(), b, 1e-5)
+
+
+def test_pad_to_capacity_cobuckets_streamed_artifacts(bases):
+    """The reference's test of the same name: a fresh fit (exact-size
+    buffers) and a streamed artifact (grown buffers) land in different
+    buckets until padded to a common capacity, and the padded artifact
+    predicts as the fresh one; the streamed artifact answers as the
+    reference's after the same update (1e-5 of scale)."""
+    from repro.core.protocols import update as ref_update
+    from repro_torch.core.protocols.base import update
+
+    ref, base_center = bases["center"]
+    rng = np.random.default_rng(3)
+    Xn = rng.normal(size=(4, D)).astype(np.float32)
+    yn = np.zeros(4, np.float32)
+    streamed = update(base_center, Xn, yn, machine=0)
+    assert bucket_key(streamed) != bucket_key(base_center)
+    cap = int(streamed.y.shape[-1])
+    fresh_padded = pad_to_capacity(base_center, cap)
+    assert bucket_key(fresh_padded) == bucket_key(streamed)
+    Xq = _queries(1)[0]
+    for a, b in zip(predict(fresh_padded, Xq), predict(base_center, Xq)):
+        _close(a.numpy(), b.numpy(), 1e-5)
+    for a, b in zip(predict(streamed, Xq), ref_predict(ref_update(ref, Xn, yn, machine=0), Xq)):
+        _close(a.numpy(), b, 1e-5)
+    stack = FleetStack({0: fresh_padded, 1: streamed})
+    mu_s, _ = stack.predict([0, 1], _queries(2))
+    assert bool(torch.isfinite(mu_s).all())
 
 
 # --------------------------------------------------------------------------

@@ -231,6 +231,59 @@ def test_gram_modes_on_card(cuda, tmp_path, protocol, mode):
                                    atol=1e-4 * max(1.0, float(np.abs(want).max())))
 
 
+# the launches of one streaming update and of one request after it, from
+# zero, under the pallas backend: the center's new cross-gram is one gram
+# launch; broadcast's and poe's updates run no kernel (as the reference's)
+STREAM_LAUNCHES = {
+    ("center", "kl"): ({"gram": 1}, {"gram": 1}),
+    ("broadcast", "kl"): ({}, {"gram": 1, "epilogue": 1}),
+    ("poe", "rbcm"): ({}, {"gram": 1}),
+}
+
+
+@pytest.mark.parametrize("protocol,fusion", list(STREAM_LAUNCHES))
+def test_streamed_paths_on_card(cuda, tmp_path, protocol, fusion):
+    """A checkpoint streamed on the card and on the CPU (the same batches,
+    machines 1, 0, 2, 3; the first crosses a bucket edge): the launch
+    counts of each update and request, the same counters and ledgers, the
+    answers within 1e-4 of scale as the other card-vs-CPU serves here, and
+    a bitwise save -> load of the streamed artifact."""
+    from repro_torch.core.protocols.base import update_growth_count
+
+    parts, Xq = _fig6_like()
+    cfg = DGPConfig(protocol=protocol, fusion=fusion, gram_backend="pallas", steps=10)
+    est, cpu = DistributedGP(cfg), DistributedGP(cfg, device="cpu")
+    est.save(est.fit(parts=parts), str(tmp_path / "fit"))
+    art, art_c = est.load(str(tmp_path / "fit")), cpu.load(str(tmp_path / "fit"))
+    want_update, want_request = STREAM_LAUNCHES[protocol, fusion]
+    rng = np.random.default_rng(7)
+    for j in (1, 0, 2, 3):
+        Xn = rng.normal(size=(16, 21)).astype(np.float32)
+        yn = np.sin(Xn[:, 0]).astype(np.float32)
+        g0 = update_growth_count(art.protocol)
+        crossing = int(art.stream.cols) + 16 > int(art.y.shape[-1])
+        runtime.reset_launches()
+        art = est.update(art, Xn, yn, machine=j)
+        assert {k: v for k, v in runtime.launches().items() if v} == want_update
+        assert update_growth_count(art.protocol) - g0 == int(crossing)
+        runtime.reset_launches()
+        est.predict(art, Xq)
+        assert {k: v for k, v in runtime.launches().items() if v} == want_request
+        art_c = cpu.update(art_c, Xn, yn, machine=j)
+    assert art.device.type == "cuda" and art.lengths == art_c.lengths
+    assert (art.wire_bits, art.payload_bits, art.integrity_bits) == (
+        art_c.wire_bits, art_c.payload_bits, art_c.integrity_bits)
+    mu, var = est.predict(art, Xq)
+    mu_c, var_c = cpu.predict(art_c, Xq)
+    for got, want in ((mu, mu_c), (var, var_c)):
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(np.abs(want).max())))
+    est.save(art, str(tmp_path / "streamed"))
+    mu2, var2 = est.predict(est.load(str(tmp_path / "streamed")), Xq)
+    assert torch.equal(mu, mu2) and torch.equal(var, var2)
+
+
 def test_legacy_fixture_serves_on_card(cuda):
     """The committed format-v1 checkpoint (no config, unpacked codes) loads
     onto the card and serves as it does on the CPU, within 5e-5 of
