@@ -133,6 +133,34 @@ into a pass):
       p50 / p99 (host clock, synchronized) over the stream and over 32
       in-bucket repeats, and the aten ops and device kernels of one
       in-bucket update, after the card's name and power limit.
+   i. fault injection (``fault_phase``) at the same width: center and
+      broadcast (KL) fitted under ``drop_machine(3) | nan_shard(5) |
+      corrupt_words(1e-3, seed=7)``, poe-rBCM under the drop and NaN shard,
+      all ``gram_backend="pallas"``.  Checks: ``rows_demoted`` equal to the
+      CRC mismatches recomputed from the flip masks (CRC-16 is affine over
+      XOR, so a mask breaks a row's CRC whatever its words); ``fit_lengths``
+      the transmitted lengths less the demotions, machine 3 empty; the
+      ledgers the ``comm/accounting.py`` formulas on the transmitted
+      lengths, as integers; launches from zero per fit and per request
+      exactly ``FAULT_LAUNCHES`` (one ``qgram_packed`` over the survivors'
+      compacted words); ``health()`` degraded, machine 3 lost, the
+      demotions counted; with four more machines masked the KL
+      ``variance_inflation`` m / m_alive and no variance below the healthy
+      request's; SMSE finite and below 1, printed beside 4a-c's; save ->
+      load bitwise with the plan in ``meta.json``; the same fit on the CPU
+      with equal demotions, lengths and ledgers, trained log-params within
+      ``FIG6_PARAM_TOL``, mu and var within ``FAULT_OUT_TOL`` of scale (the
+      Nyström views' fused serve cancels: see the constant).  Then four corrupted 16-row batches into
+      the center and broadcast artifacts (an update to machine 3 refused):
+      the whole batch charged, the demotions the masks' CRC mismatches,
+      launches ``STREAM_LAUNCHES``.  Then center and broadcast with
+      ``scheme="vq"`` at R = 24 (no kernel: the config's ``xla`` rule):
+      the ledger sum_j ceil(L_j R_j) + side info recomputed from the
+      channels, payload == ledger, integrity 0, within 5 % of 4a-b's
+      per-symbol ledger, one update charged ceil(16 R), save -> load
+      bitwise, the CPU fit within ``FAULT_OUT_TOL``.  Prints fit seconds,
+      request p50 / p99 and SMSE per path after the card's name and power
+      limit.
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -141,6 +169,7 @@ the script fails before printing any result.  It imports nothing of JAX.
 """
 import itertools
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -551,6 +580,316 @@ def stream_phase(dev, arts, X_new, y_new, X_q, batch=128):
               f"synchronized); one in-bucket update: {ops} aten ops, {kernels} device "
               f"kernels (factor side {K}); loaded == saved (bitwise), a further update "
               f"continues the stream; launches {path_launches[f'stream {name}']}", flush=True)
+    return path_launches
+
+
+# phase i: fault injection, CRC demotion, degraded serving and the vq channel
+# drop machine 3, NaN-poison half of machine 5, flip each wire bit with 1e-3
+FAULT_DROP, FAULT_NAN, FAULT_FLIP, FAULT_SEED = 3, 5, 1e-3, 7
+# the launches each faulted fit and each request must make, from zero:
+# {kernel: count}, every other kernel 0.  A corrupted fit reads the
+# survivors' compacted words through one qgram_packed launch; the vq paths
+# run gram_backend="xla" (the config's rule: no int codes), so no kernel
+FAULT_LAUNCHES = {
+    "center": ({"gram": 1, "qgram_packed": 1}, {"gram": 1}),
+    "broadcast": ({"gram": 1, "qgram_packed": 1}, {"gram": 1, "epilogue": 1}),
+    "poe-rbcm": ({"gram": 1}, {"gram": 1}),
+    "vq center": ({}, {}),
+    "vq broadcast": ({}, {}),
+}
+# the card's fits against the same fits on the CPU (same parts, same plan,
+# 150 Adam steps each), max |diff| of mu and var as a fraction of max(1,
+# max |CPU value|).  Every wire path of this phase serves Nyström views
+# whose variance cancels (the fused serve's P = (U - U M^{-1} U) / s2), so
+# FIG6_OUT_TOL, set from the direct and fitc modes, does not hold here:
+# phase 4a's CPU serve of the card's own healthy checkpoint already reads
+# var 9.9e-4 (2.7e-4 of scale).  Read on the H100 in this phase: center mu
+# 2.3e-4, var 2.7e-4; broadcast 1.7e-4, 1.9e-4; vq center 1.5e-4, 2.9e-4;
+# vq broadcast 9.6e-5, 1.8e-4; rBCM 1.5e-6, 4.1e-6.  The limit keeps a
+# margin of seven over the largest; the trained log-params are held to
+# FIG6_PARAM_TOL besides (read 6.6e-7 to 5.0e-5)
+FAULT_OUT_TOL = 2e-3
+FAULT_MASKED = (7, 11, 19, 23)  # the degraded request masks these besides machine 3
+FAULT_STREAM = (1, 2, 4, 6)  # the machines of the four corrupted 16-row batches
+
+
+def fault_phase(dev, parts, X_q, y_q, per_symbol, X_new, y_new, steps=150, batch=128):
+    """Phase i on ``dev``: center, broadcast (KL) and poe-rBCM fitted under
+    a fault plan (drop, NaN shard and, for the two wire protocols, bit
+    flips), with ``gram_backend="pallas"``; then corrupted streaming into
+    the center and broadcast artifacts; then center and broadcast fitted
+    with ``scheme="vq"``.  ``parts``: the machines' shards; ``X_q``/``y_q``:
+    the test points, served in requests of ``batch``; ``per_symbol``:
+    {path: (SMSE, wire_bits)} of the healthy per-symbol fits, printed
+    beside; ``X_new``/``y_new``: the streamed rows.  Every check is a
+    ``check``; returns {path: launches} for the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.comm.accounting import (
+        CRC_BITS, integrity_bits_formula, payload_bits_formula, payload_row_bits,
+        row_bits, side_info_bits, wire_bits_formula,
+    )
+    from repro_torch.core import DGPConfig, DistributedGP
+    from repro_torch.core import torch_scheme as TS
+    from repro_torch.core.rate_distortion import distortion_for_rate, make_test_channel
+    from repro_torch.kernels import runtime
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    runtime.families()
+    m, d = len(parts), parts[0][0].shape[1]
+    reqs = [X_q[i:i + batch] for i in range(0, X_q.shape[0], batch)]
+    y_true = torch.as_tensor(y_q)
+    smse = lambda mu: float(((mu.cpu() - y_true) ** 2).mean() / y_true.var(unbiased=False))
+    data_plan = faults.drop_machine(FAULT_DROP) | faults.nan_shard(FAULT_NAN)
+    wire_plan = data_plan | faults.corrupt_words(FAULT_FLIP, seed=FAULT_SEED)
+    path_launches, summary = {}, []
+
+    def crc_failures(shape, stream):
+        """Rows of one transmission whose CRC the flip mask breaks: CRC-16 is
+        affine over XOR, so crc(w ^ e) != crc(w) exactly when
+        crc(e) != crc(0), whatever the words."""
+        e = faults.flip_mask(shape, FAULT_FLIP, FAULT_SEED, stream)
+        return int((TS.crc_words(e) != TS.crc_words(torch.zeros_like(e))).sum())
+
+    def serve(est, art, name, want_request, available=None):
+        """The requests on ``art``, each one's launches held to
+        ``want_request``; returns (mu, var, request ms)."""
+        mus, vars_, times = [], [], []
+        for xb in reqs:
+            before = runtime.launches()
+            sync()
+            t = time.perf_counter()
+            mu, var = est.predict(art, xb, available=available)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            after = runtime.launches()
+            _launch_check(f"fault {name} request", {k: after[k] - before[k] for k in after},
+                          want_request)
+            mus.append(mu)
+            vars_.append(var)
+        return torch.cat(mus), torch.cat(vars_), np.array(times)
+
+    def fit(cfg, on=None):
+        est = DistributedGP(cfg, device=on or dev)
+        runtime.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        art = est.fit(parts=parts)
+        sync()
+        return est, art, time.perf_counter() - t0, runtime.launches()
+
+    def roundtrip(est, art, name, mu, var, plan):
+        ckpt = ROOT / "build" / f"chip_smoke_fault_{name.replace(' ', '_')}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        est.save(art, str(ckpt))
+        meta = json.loads(next(ckpt.glob("meta*.json")).read_text())
+        back = est.load(str(ckpt))
+        shutil.rmtree(ckpt, ignore_errors=True)
+        want = None if plan is None else json.loads(json.dumps(plan.asdict()))
+        check(meta["config"]["faults"] == want,
+              f"fault {name}: meta.json carries {meta['config']['faults']}, not the plan")
+        check(back.config == art.config and back.rows_demoted == art.rows_demoted,
+              f"fault {name}: the loaded artifact's config or demotions differ")
+        runtime.reset_launches()
+        mu2, var2, _ = serve(est, back, name, FAULT_LAUNCHES[name][1])
+        check(torch.equal(mu2, mu) and torch.equal(var2, var),
+              f"fault {name}: the loaded artifact's answers differ from the pre-save answers")
+
+    def against_cpu(cfg, name, art, mu, var):
+        _, art_c, fit_c, _ = fit(cfg, on="cpu")
+        d_p = max(abs(float(a) - float(b)) for a, b in zip(art.params, art_c.params))
+        check(d_p <= FIG6_PARAM_TOL,
+              f"fault {name}: the card's trained log-params differ from the CPU's by {d_p}")
+        est_c = DistributedGP(cfg, device="cpu")
+        out = [est_c.predict(art_c, xb) for xb in reqs]
+        mu_c, var_c = torch.cat([o[0] for o in out]), torch.cat([o[1] for o in out])
+        ints = lambda a: (a.rows_demoted, a.lengths, a.wire_bits, a.payload_bits,
+                          a.integrity_bits)
+        check(ints(art_c) == ints(art),
+              f"fault {name}: the CPU fit's demotions, lengths or ledgers {ints(art_c)} "
+              f"differ from the card's {ints(art)}")
+        errs = []
+        for label, a, b in (("mu", mu, mu_c), ("var", var, var_c)):
+            err = float((a.cpu() - b).abs().max())
+            tol = FAULT_OUT_TOL * max(1.0, float(b.abs().max()))
+            errs.append(f"{label} max |diff| {err:.3e} (tol {tol:.2e})")
+            check(err <= tol, f"fault {name}: the card's {label} differs from the CPU's by "
+                              f"{err}, more than {tol}")
+        print(f"[fault] {name}: the same fit on the CPU ({fit_c:.1f} s): equal demotions, "
+              f"lengths and ledgers; trained log-params max |diff| {d_p:.2e} (tol "
+              f"{FIG6_PARAM_TOL:.0e}); {'; '.join(errs)}", flush=True)
+
+    # -- faulted fits -------------------------------------------------------
+    sent, _ = faults.apply_to_parts([(np.asarray(X), np.asarray(y)) for X, y in parts],
+                                    data_plan)
+    L_tx = [X.shape[0] for X, _ in sent]
+    W = TS.row_words(row_bits(24, d, 12))
+    arts = {}
+    for name, proto in (("center", {}), ("broadcast", {"protocol": "broadcast", "fusion": "kl"}),
+                        ("poe-rbcm", {"protocol": "poe", "fusion": "rbcm"})):
+        plan = data_plan if name == "poe-rbcm" else wire_plan
+        cfg = DGPConfig(gram_backend="pallas", steps=steps, bits_per_sample=24, faults=plan,
+                        **proto)
+        est, art, fit_s, fit_launches = fit(cfg)
+        _launch_check(f"fault {name} fit", fit_launches, FAULT_LAUNCHES[name][0])
+        skip = 0 if name == "center" else None
+        tx = [j for j in range(m) if j != skip and L_tx[j] > 0]
+        if name == "poe-rbcm":
+            want_demoted, per_machine = 0, [0] * m
+            ledgers = (0, 0, 0)
+        else:
+            per_machine = [crc_failures((L_tx[j], W), j) if j in tx else 0 for j in range(m)]
+            want_demoted = sum(per_machine)
+            rates = art.wire.rates.cpu().numpy()
+            ledgers = (wire_bits_formula(rates, L_tx, d, skip=skip),
+                       payload_bits_formula(L_tx, d, 24, 12, skip=skip),
+                       integrity_bits_formula(L_tx, skip=skip))
+        check(art.rows_demoted == want_demoted,
+              f"fault {name}: {art.rows_demoted} rows demoted, the masks' CRCs say "
+              f"{want_demoted}")
+        check(art.fit_lengths[FAULT_DROP] == 0 and list(art.fit_lengths)
+              == [L_tx[j] - per_machine[j] for j in range(m)],
+              f"fault {name}: fit lengths {art.fit_lengths} are not the transmitted "
+              f"{L_tx} less the demotions")
+        check((art.wire_bits, art.payload_bits, art.integrity_bits) == ledgers,
+              f"fault {name}: ledgers {(art.wire_bits, art.payload_bits, art.integrity_bits)} "
+              f"are not the formulas on the transmitted lengths {ledgers}")
+        runtime.reset_launches()
+        mu, var, t_ms = serve(est, art, name, FAULT_LAUNCHES[name][1])
+        path_launches[f"fault {name}"] = {k: fit_launches[k] + v
+                                          for k, v in runtime.launches().items()}
+        e = smse(mu)
+        check(bool(torch.isfinite(mu).all()) and bool((var > 0).all()) and np.isfinite(e)
+              and e < 1.0, f"fault {name}: SMSE {e} or the variances are not sane")
+        h = est.health(art)
+        inflation = m / (m - 1) if name == "broadcast" else 1.0
+        check(h.status == "degraded" and h.machines == m and h.machines_lost == (FAULT_DROP,)
+              and h.rows_demoted == want_demoted and h.variance_inflation == inflation,
+              f"fault {name}: health() reports {h}")
+        print(f"[fault] {name}: fit {fit_s:.3f} s, {sum(L_tx)} rows after the data faults, "
+              f"{sum(L_tx[j] for j in tx) if name != 'poe-rbcm' else 0} transmitted, "
+              f"{art.rows_demoted} demoted (the masks' CRCs: {want_demoted}); ledgers "
+              f"wire {art.wire_bits} payload {art.payload_bits} integrity "
+              f"{art.integrity_bits}; request p50 {np.percentile(t_ms, 50):.3f} ms p99 "
+              f"{np.percentile(t_ms, 99):.3f} ms ({len(t_ms)} requests, host clock); SMSE "
+              f"{e:.4f} (healthy per-symbol {per_symbol[name][0]:.4f}); {h}", flush=True)
+        summary.append((name, fit_s, np.percentile(t_ms, 50), np.percentile(t_ms, 99), e))
+        if name != "center":  # the fusing protocols under 4 more machines masked
+            avail = np.ones(m, np.float32)
+            avail[[FAULT_DROP, *FAULT_MASKED]] = 0.0
+            hd = est.health(art, avail)
+            n_alive = m - 1 - len(FAULT_MASKED)
+            check(hd.machines_lost == tuple(sorted((FAULT_DROP, *FAULT_MASKED)))
+                  and hd.variance_inflation == (m / n_alive if name == "broadcast" else 1.0),
+                  f"fault {name}: health() under the degraded mask reports {hd}")
+            runtime.reset_launches()
+            mu_d, var_d, _ = serve(est, art, name, FAULT_LAUNCHES[name][1], avail)
+            shrunk = float((var - var_d).max())
+            check(bool(torch.isfinite(mu_d).all()) and bool((var_d > 0).all()),
+                  f"fault {name}: the degraded request is not finite")
+            if name == "broadcast":
+                check(shrunk <= 1e-6 * max(1.0, float(var.abs().max())),
+                      f"fault {name}: a degraded variance fell {shrunk} below the healthy one")
+            print(f"[fault] {name}: {len(FAULT_MASKED)} more machines masked: {hd}; SMSE "
+                  f"{smse(mu_d):.4f}; largest fall of a variance below the healthy request's "
+                  f"{shrunk:.3e}", flush=True)
+        roundtrip(est, art, name, mu, var, plan)
+        against_cpu(cfg, name, art, mu, var)
+        arts[name] = (est, art)
+
+    # -- corrupted streaming ------------------------------------------------
+    for name in ("center", "broadcast"):
+        est, art = arts[name]
+        try:
+            est.update(art, X_new[:4], y_new[:4], machine=FAULT_DROP)
+            fail(f"fault {name}: an update to the dropped machine was accepted")
+        except ValueError:
+            pass
+        runtime.reset_launches()
+        row, demoted, times = 0, [], []
+        for j in FAULT_STREAM:
+            Xb, yb = X_new[row:row + 16], y_new[row:row + 16]
+            row += 16
+            before = art
+            want_demoted = crc_failures((16, W), art.wire_bits + j)
+            l0 = runtime.launches()
+            sync()
+            t = time.perf_counter()
+            art = est.update(art, Xb, yb, machine=j)
+            sync()
+            times.append((time.perf_counter() - t) * 1e3)
+            l1 = runtime.launches()
+            got = art.rows_demoted - before.rows_demoted
+            kept = art.lengths[j] - before.lengths[j]
+            rate = int(before.wire.rates[j].sum())
+            check(got == want_demoted and kept == 16 - got,
+                  f"fault {name} stream: {got} demoted and {kept} kept of 16, the mask's CRCs "
+                  f"say {want_demoted}")
+            check((art.wire_bits - before.wire_bits, art.payload_bits - before.payload_bits,
+                   art.integrity_bits - before.integrity_bits)
+                  == (rate * 16, payload_row_bits(24, d, 12) * 16, CRC_BITS * 16),
+                  f"fault {name} stream: the ledgers were not charged the whole batch")
+            _launch_check(f"fault {name} corrupted update", {k: l1[k] - l0[k] for k in l1},
+                          STREAM_LAUNCHES[name][0] if kept else {})
+            est.predict(art, reqs[0])
+            sync()
+            l2 = runtime.launches()
+            _launch_check(f"fault {name} request after a corrupted update",
+                          {k: l2[k] - l1[k] for k in l2}, STREAM_LAUNCHES[name][1])
+            demoted.append(got)
+        path_launches[f"fault stream {name}"] = runtime.launches()
+        print(f"[fault] {name}: four corrupted 16-row batches (machines {FAULT_STREAM}): "
+              f"demoted {demoted}, ledgers charged every transmitted row; update p50 "
+              f"{np.percentile(times, 50):.3f} ms (host clock); launches "
+              f"{path_launches[f'fault stream {name}']}", flush=True)
+
+    # -- the vq channel -------------------------------------------------------
+    S = [np.asarray(X, np.float64).T @ np.asarray(X, np.float64) / max(len(X), 1)
+         for X, _ in parts]
+    for name, proto in (("vq center", {}), ("vq broadcast", {"protocol": "broadcast"})):
+        cfg = DGPConfig(scheme="vq", steps=steps, bits_per_sample=24, **proto)
+        est, art, fit_s, fit_launches = fit(cfg)
+        _launch_check(f"fault {name} fit", fit_launches, FAULT_LAUNCHES[name][0])
+        center = name == "vq center"
+        want = 0
+        for j, (X, _) in enumerate(parts):
+            if center and j == 0:
+                continue
+            Qy = S[0] if center else sum(S) - S[j]
+            ch = make_test_channel(S[j], Qy, distortion_for_rate(S[j], Qy, 24.0))
+            want += math.ceil(len(X) * ch.rate_bits) + side_info_bits(d)
+        ps_wire = per_symbol[name.split()[1]][1]
+        check(art.wire_bits == want and art.payload_bits == art.wire_bits
+              and art.integrity_bits == 0,
+              f"fault {name}: ledgers {(art.wire_bits, art.payload_bits, art.integrity_bits)}, "
+              f"the channels' sum {want}")
+        check(abs(art.wire_bits - ps_wire) <= 0.05 * ps_wire,
+              f"fault {name}: ledger {art.wire_bits} not within 5 % of per-symbol's {ps_wire}")
+        runtime.reset_launches()
+        mu, var, t_ms = serve(est, art, name, FAULT_LAUNCHES[name][1])
+        e = smse(mu)
+        check(bool(torch.isfinite(mu).all()) and bool((var > 0).all()) and e < 1.0,
+              f"fault {name}: SMSE {e} or the variances are not sane")
+        more = est.update(art, X_new[:16], y_new[:16], machine=1)
+        charge = math.ceil(16 * float(art.data["vq_rate_bits"][1]))
+        check((more.wire_bits - art.wire_bits, more.payload_bits - art.payload_bits,
+               more.integrity_bits - art.integrity_bits) == (charge, charge, 0),
+              f"fault {name}: an update of 16 rows was not charged ceil(16 R) = {charge}")
+        path_launches[f"fault {name}"] = {k: fit_launches[k] + v
+                                          for k, v in runtime.launches().items()}
+        print(f"[fault] {name}: fit {fit_s:.3f} s; ledger {art.wire_bits} (per-symbol "
+              f"{ps_wire}, {100 * (art.wire_bits / ps_wire - 1):+.2f} %), payload == ledger, "
+              f"integrity 0; an update of 16 rows charged {charge}; request p50 "
+              f"{np.percentile(t_ms, 50):.3f} ms p99 {np.percentile(t_ms, 99):.3f} ms; SMSE "
+              f"{e:.4f} (per-symbol {per_symbol[name.split()[1]][0]:.4f})", flush=True)
+        summary.append((name, fit_s, np.percentile(t_ms, 50), np.percentile(t_ms, 99), e))
+        roundtrip(est, art, name, mu, var, None)
+        against_cpu(cfg, name, art, mu, var)
+    print("[fault] path  fit s  request p50 / p99 ms  SMSE:  " + "  ".join(
+        f"{n} {f:.3f} {p50:.3f}/{p99:.3f} {e:.4f}" for n, f, p50, p99, e in summary),
+        flush=True)
     return path_launches
 
 
@@ -1768,6 +2107,23 @@ def main():
         check(all(path_launches[f"stream {name}"][k] > 0 for k in per_request),
               f"stream {name}: a kernel of the path never launched")
     print(f"[stream] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # i. fault injection and the vq channel at the same width: faulted fits
+    # of a.-c.'s paths, corrupted streaming, degraded requests, vq fits
+    t0 = time.perf_counter()
+    print(f"[fault] {smi}", flush=True)
+    path_launches.update(fault_phase(
+        dev, parts, X_te, y_te,
+        {"center": (center["smse"], center["art"].wire_bits),
+         "broadcast": (bcast["smse"], bcast["art"].wire_bits),
+         "poe-rbcm": (rbcm["smse"], 0)},
+        X_te[3000:3064], y_te[3000:3064]))
+    for name, kernels in (("center", ("gram", "qgram_packed")),
+                          ("broadcast", ("gram", "qgram_packed", "epilogue")),
+                          ("poe-rbcm", ("gram",))):
+        check(all(path_launches[f"fault {name}"][k] > 0 for k in kernels),
+              f"fault {name}: a kernel of the path never launched")
+    print(f"[fault] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"

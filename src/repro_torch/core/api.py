@@ -2,6 +2,7 @@
 ``repro/core/api.py``::
 
     from repro_torch.core import DGPConfig, DistributedGP
+    from repro_torch.faults import corrupt_words, drop_machine
 
     est = DistributedGP(DGPConfig(gram_backend="pallas"))  # on the card
     art = est.fit(X, y, m=40)          # wire + train + factorize ONCE
@@ -11,6 +12,9 @@
     rbcm = DistributedGP(DGPConfig(protocol="poe", fusion="rbcm", gram_backend="pallas"))
     mu, var = bc.predict(bc.fit(X, y, m=40), X_query, available=alive)  # (m,) mask
     art2 = est.update(art, X_new, y_new, machine=3)  # stream in; art unchanged
+    # a degraded fleet: machine 3 dropped, 1e-3 bit flips on the wire
+    faulty = DistributedGP(DGPConfig(faults=drop_machine(3) | corrupt_words(1e-3, seed=7)))
+    est.health(faulty.fit(X, y, m=40))  # status, machines lost, rows demoted
     est.save(art, "ckpt/")             # est.load("ckpt/") serves identically
 
 The estimator runs on ``device`` — the CUDA card unless the caller passes
@@ -94,11 +98,16 @@ class DistributedGP:
             )
         return _base.update(art, X_new, y_new, machine)
 
-    def health(self, art, available=None):
-        raise NotImplementedError(
-            "health() / degraded serving is not ported yet (queue 1, slice 4 "
-            "in ROADMAP.md)"
-        )
+    def health(self, art: FittedProtocol, available=None):
+        """Degradation report of a fitted artifact (machines lost, rows
+        demoted, variance inflation) under ``available`` — see
+        :func:`~repro_torch.core.protocols.base.serve_health`."""
+        if not isinstance(art, FittedProtocol):
+            raise TypeError(
+                "health() needs a FittedProtocol artifact (impl='host' oracle "
+                "models carry no shard table to report on)"
+            )
+        return _base.serve_health(art, available)
 
     def save(self, art: FittedProtocol, directory: str, step: int = 0) -> str:
         """Checkpoint an artifact in the reference's format v6."""

@@ -4,14 +4,16 @@ The same frozen dataclass with the same fields, defaults and validation, so
 a config (and the ``config`` block of a checkpoint's ``meta.json``) means
 the same in both packages.  ``gram_backend="pallas"`` selects the port's
 hand-written Hopper kernels (``gram``, ``qgram_packed``); ``"xla"`` the
-plain PyTorch path (matmuls).  Names the reference knows but the port has
-not built yet validate, and ``fit`` raises ``NotImplementedError`` naming
-their ROADMAP slice.  ``faults`` takes only ``None`` in this slice.
+plain PyTorch path (matmuls).  ``impl="mesh"`` validates, and ``fit``
+raises ``NotImplementedError`` naming its ROADMAP slice.  ``faults`` takes
+the port's :class:`~repro_torch.faults.FaultPlan`, which ``meta.json``
+records as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from ..faults import FaultPlan
 from . import quantizers as Q
 from .registry import FUSIONS, KERNELS, PROTOCOLS, SCHEMES
 
@@ -27,9 +29,6 @@ SERVE_EPILOGUES = ("fused", "unfused")
 # the reference's checkpoint format: packed uint32 wire words (v3),
 # per-array CRC32s (v4), stream/* leaves (v5), serve-cache keys (v6)
 ARTIFACT_FORMAT_VERSION = 6
-
-_FAULTS_SLICE = "fault injection is queue 1, slice 4 in ROADMAP.md"
-
 
 def _ensure_registered() -> None:
     from . import protocols  # noqa: F401  (registers schemes + protocols)
@@ -69,7 +68,7 @@ class DGPConfig:
             (PROTOCOLS, self.protocol), (SCHEMES, self.scheme),
             (KERNELS, self.kernel), (FUSIONS, self.fusion),
         ):
-            registry.check(value)
+            registry.get(value)
         _check_choice("impl", self.impl, IMPLS)
         _check_choice("gram_backend", self.gram_backend, GRAM_BACKENDS)
         _check_choice("gram_mode", self.gram_mode, GRAM_MODES)
@@ -104,7 +103,11 @@ class DGPConfig:
                     'path: use gram_backend="xla"'
                 )
         if self.faults is not None:
-            raise NotImplementedError(f"faults=... is not ported yet ({_FAULTS_SLICE})")
+            if not isinstance(self.faults, FaultPlan):
+                raise TypeError(
+                    f"faults must be a repro_torch.faults.FaultPlan or None, got "
+                    f"{type(self.faults).__name__}"
+                )
 
     def asdict(self) -> dict:
         """JSON-ready dict (checkpoint ``meta.json`` records this)."""
@@ -114,10 +117,8 @@ class DGPConfig:
     def from_dict(cls, d: dict) -> "DGPConfig":
         known = {f.name for f in dataclasses.fields(cls)}
         d = {k: v for k, v in d.items() if k in known}
-        if d.get("faults") is not None:
-            raise NotImplementedError(
-                f"config carries a fault plan ({_FAULTS_SLICE})"
-            )
+        if isinstance(d.get("faults"), dict):
+            d["faults"] = FaultPlan.from_dict(d["faults"])
         return cls(**d)
 
     @classmethod

@@ -3,6 +3,8 @@
 
 * the padded-shard layout every batched stage runs on (:class:`PaddedShards`),
 * the wire state (:class:`WireState`, :class:`WireRun`),
+* the fit-time fault injection (:func:`_apply_fit_faults`) and the
+  degraded-serving report (:class:`ServeHealth`, :func:`serve_health`),
 * the serving artifact (:class:`FittedProtocol`, :class:`StreamState`) and
   its :func:`fit` / :func:`predict` / :func:`save_artifact` /
   :func:`load_artifact` lifecycle,
@@ -13,9 +15,9 @@
 Artifacts are dataclasses of tensors on one device (``art.device``);
 :func:`predict` serves on that device, optionally with a machine
 availability mask (``available=``) that the fusing protocols renormalize
-over, and :func:`update` streams new points in and returns a new artifact.
-``health`` (slice 4) comes later.  Checkpoints are format v6, and
-checkpoints of every older format load.
+over, :func:`serve_health` reports what such a request degrades to, and
+:func:`update` streams new points in and returns a new artifact.
+Checkpoints are format v6, and checkpoints of every older format load.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import warnings
 import numpy as np
 import torch
 
+from ...faults import apply_to_parts
 from ..gp import GPParams, prior_diag
 from ..registry import PROTOCOLS, SCHEMES
 from ..torch_scheme import words_from_uint32, words_to_uint32
@@ -38,6 +41,8 @@ __all__ = [
     "PaddedShards",
     "WireState",
     "WireRun",
+    "ServeHealth",
+    "serve_health",
     "StreamState",
     "FittedProtocol",
     "fit",
@@ -153,13 +158,18 @@ class WireState:
 
 
 class WireRun(collections.namedtuple(
-    "WireRun", "state wire_bits payload_bits integrity_bits shards",
+    "WireRun",
+    "state wire_bits payload_bits integrity_bits extras shards rows_demoted",
 )):
     """What one ``SchemeSpec.run`` produced: the :class:`WireState`, the
     three integer ledgers (Theorem-1 ``wire_bits``, packed ``payload_bits``,
-    CRC ``integrity_bits``) and the :class:`PaddedShards` the protocol
-    assembles from.  (The reference's scheme ``extras`` and demotion count
-    come with the vq scheme and fault injection.)"""
+    CRC ``integrity_bits``: all charged for what was TRANSMITTED, before any
+    demotion), the scheme's ``extras`` (arrays that ride in the artifact's
+    ``data``: the vq channel state), the :class:`PaddedShards` the protocol
+    assembles from (under a fault plan's flips, each machine's
+    CRC-surviving rows compacted to the front, lengths and mask shrunk to
+    match) and ``rows_demoted``, the transmitted rows the receiver's CRC
+    check rejected."""
 
     __slots__ = ()
 
@@ -244,9 +254,55 @@ class FittedProtocol:
     def rows_demoted(self) -> int:
         return int(self.stream.rows_demoted)
 
+    def health(self, available=None) -> "ServeHealth":
+        """Degradation status of this artifact — see :func:`serve_health`."""
+        return serve_health(self, available)
+
     def update(self, X_new, y_new, machine: int = 0) -> "FittedProtocol":
         """Stream in new points — see :func:`update`."""
         return update(self, X_new, y_new, machine)
+
+
+def _apply_fit_faults(parts, cfg):
+    """Dataset-level fault injection at fit entry (drop and NaN shards of
+    ``cfg.faults``, on numpy copies of ``parts``) and the guards that keep
+    the remaining fleet trainable: the §5.1 center and the broadcast/poe
+    training machine (machine 0) must survive; predict-time availability
+    masks serve arbitrary machine loss.  Returns ``(parts, rows_removed)``
+    (``parts`` untouched without a plan)."""
+    plan = cfg.faults
+    if plan is None:
+        return parts, 0
+    new_parts, removed = apply_to_parts(
+        [(_numpy(X), _numpy(y)) for X, y in parts], plan)
+    lengths = [int(p[0].shape[0]) for p in new_parts]
+    if not any(lengths):
+        raise ValueError(
+            "fault plan removed every row from every machine — nothing to fit"
+        )
+    if cfg.protocol == "center" and lengths[cfg.center] == 0:
+        raise ValueError(
+            f"fault plan emptied the center machine ({cfg.center}) — the "
+            "§5.1 protocol cannot fit without its exact block; drop a "
+            "non-center machine or serve an old artifact degraded instead"
+        )
+    if cfg.protocol in ("broadcast", "poe") and lengths[0] == 0:
+        raise ValueError(
+            "fault plan emptied machine 0, where broadcast/poe train their "
+            "hyperparameters — drop a different machine (prediction-time "
+            "availability masks handle arbitrary loss)"
+        )
+    return new_parts, removed
+
+
+def _refuse_host_flips(cfg):
+    """The ``impl="host"`` oracles have no packed plane to corrupt: a plan
+    with bit flips is refused there (its data faults apply)."""
+    if cfg.faults is not None and cfg.faults.flip_rate > 0.0:
+        raise NotImplementedError(
+            "wire corruption (flip_rate) needs the packed code plane — the "
+            'host oracle has none; use impl="batched"'
+        )
 
 
 def fit(parts, cfg, params: GPParams | None = None, device=None):
@@ -319,6 +375,45 @@ def _predict_impl(art: FittedProtocol, X_star, avail=None):
     return mu, var
 
 
+@dataclasses.dataclass(frozen=True)
+class ServeHealth:
+    """Degradation status of a serving artifact — what :func:`predict` is
+    working with, instead of NaNs.
+
+    status : ``"ok"`` (full fleet, nothing demoted) or ``"degraded"``.
+    machines / machines_lost : fleet size and the indices serving no rows
+        (dropped at fit time or masked out by the availability argument).
+    rows_demoted : transmitted rows the receiver's CRC check rejected.
+    variance_inflation : the factor the KL barycenter's survivor
+        renormalization applies to the fused variance (``m / m_alive``);
+        1.0 for the precision-weighted PoE-family fusions (their variance
+        widens by itself as experts leave) and for the center protocol."""
+
+    status: str
+    machines: int
+    machines_lost: tuple
+    rows_demoted: int
+    variance_inflation: float
+
+
+def serve_health(art: FittedProtocol, available=None) -> ServeHealth:
+    """Report what :func:`predict` degrades to under the given availability
+    (``None`` = derived from the artifact, as in :func:`predict`)."""
+    m = len(art.fit_lengths)
+    avail = _availability(art, available)
+    alive = [True] * m if avail is None else [a > 0 for a in avail.tolist()]
+    lost = tuple(j for j in range(m) if not alive[j] or art.fit_lengths[j] == 0)
+    n_alive = m - len(lost)
+    demoted = art.rows_demoted
+    inflation = 1.0
+    if lost and art.protocol in ("broadcast", "poe") and art.fuse == "kl" and n_alive > 0:
+        inflation = m / n_alive
+    return ServeHealth(
+        status="ok" if not lost and demoted == 0 else "degraded", machines=m,
+        machines_lost=lost, rows_demoted=demoted, variance_inflation=inflation,
+    )
+
+
 # --------------------------------------------------------------------------
 # update: streaming append by rank-k factor growth
 # --------------------------------------------------------------------------
@@ -352,7 +447,9 @@ def update(art: FittedProtocol, X_new, y_new, machine: int = 0) -> FittedProtoco
     views only.  PoE: the points extend ``machine``'s expert (zero rate).
     A machine that transmitted no rows at fit time has no frozen codebooks
     and is refused.  Rows with a NaN or Inf are dropped with a warning; a
-    batch with no rows left returns ``art`` itself."""
+    batch with no rows left returns ``art`` itself.  Under a fault plan
+    with bit flips the batch is corrupted on the wire like a fit-time one:
+    CRC-failing new rows are demoted, the whole transmission is charged."""
     m = len(art.fit_lengths)
     X_new = torch.as_tensor(X_new, dtype=torch.float32, device=art.device)
     y_new = torch.as_tensor(y_new, dtype=torch.float32, device=art.device)
@@ -376,41 +473,52 @@ def update(art: FittedProtocol, X_new, y_new, machine: int = 0) -> FittedProtoco
         X_new, y_new = X_new[finite], y_new[finite]
     if X_new.shape[0] == 0:
         return art  # nothing to append, nothing to charge
-    pre = _prepare_update(art, X_new, j)
+    prepared = _prepare_update(art, X_new, y_new, j)
+    if isinstance(prepared, FittedProtocol):
+        return prepared  # every transmitted row was demoted: ledgers only
+    X_new, y_new, pre = prepared
     art = ensure_capacity(art, X_new.shape[0])
     return PROTOCOLS.get(art.protocol).update(art, X_new, y_new, j, pre)
 
 
-def _prepare_update(art: FittedProtocol, X_new, machine: int):
-    """What the receiving side sees of the batch: ``None`` for poe's
-    zero-rate experts (nothing crosses the wire), else ``(decoded,
-    wire_add, payload_add, integrity_add, demoted_add)`` — the center's own
-    points exact and free, a transmitting machine's through its scheme's
-    ``reencode`` (plus ``nystrom_fitc``'s 32-bit exact-|x|^2 side channel
-    per transmitted row).  Two of the reference's paths are pending: a
-    fault plan's corrupted transmission (slice 4) and the ``vq`` scheme's
-    host channel (slice 6); the config and the registry refuse both today,
-    and this refuses them again should an artifact carry one."""
+def _prepare_update(art: FittedProtocol, X_new, y_new, machine: int):
+    """What the receiving side sees of the batch: ``(X_new, y_new, pre)``
+    with ``pre`` ``None`` for poe's zero-rate experts (nothing crosses the
+    wire), else ``(decoded, wire_add, payload_add, integrity_add,
+    demoted_add)`` — the center's own points exact and free, a transmitting
+    machine's through its scheme's ``reencode`` (plus ``nystrom_fitc``'s
+    32-bit exact-|x|^2 side channel per transmitted row).  Under a fault
+    plan with bit flips the batch crosses the scheme's corrupting channel
+    (``update_corrupt``): only the CRC-surviving rows go on, the ledgers
+    are charged the whole batch, and when no row survives a NEW artifact
+    with only the ledgers and the demotion count bumped is returned."""
     n_new = X_new.shape[0]
     center = art.block_order[0] if art.block_order else 0
-    is_center_point = art.protocol == "center" and machine == center
-    if is_center_point:
-        return X_new, 0, 0, 0, 0  # the center's own data is local and exact
+    if art.protocol == "center" and machine == center:
+        return X_new, y_new, (X_new, 0, 0, 0, 0)  # local and exact
     if art.wire is None or art.protocol == "poe":
-        return None
-    plan = getattr(art.config, "faults", None)
-    if getattr(plan, "flip_rate", 0.0) > 0.0:
-        raise NotImplementedError(
-            "streaming a batch through a corrupted channel is not ported yet "
-            "(fault injection is queue 1, slice 4 in ROADMAP.md)"
-        )
-    spec = SCHEMES.get(art.scheme)  # a pending scheme (vq) raises naming its slice
-    if spec.reencode is None:
-        raise NotImplementedError(f"scheme {art.scheme!r} has no streaming re-encode")
-    r = spec.reencode(art, machine, X_new)
+        return X_new, y_new, None
+    spec = SCHEMES.get(art.scheme)
     side = 32 * n_new if (art.protocol == "center"
                           and art.gram_mode == "nystrom_fitc") else 0
-    return r.decoded, r.wire_bits + side, r.payload_bits + side, r.integrity_bits, 0
+    plan = art.config.faults if art.config is not None else None
+    if plan is not None and plan.flip_rate > 0.0 and spec.update_corrupt is not None:
+        keep, decoded, w_add, p_add, i_add, demoted = spec.update_corrupt(
+            art, machine, X_new, plan)
+        if keep.numel() == 0:
+            # the receiver kept nothing, but the bits moved: charge them
+            s = art.stream
+            return dataclasses.replace(art, stream=dataclasses.replace(
+                s, wire_bits=s.wire_bits + w_add + side,
+                payload_bits=s.payload_bits + p_add + side,
+                integrity_bits=s.integrity_bits + i_add,
+                rows_demoted=s.rows_demoted + demoted,
+            ))
+        return X_new[keep], y_new[keep], (decoded, w_add + side, p_add + side, i_add,
+                                          demoted)
+    r = spec.reencode(art, machine, X_new)
+    return X_new, y_new, (r.decoded, r.wire_bits + side, r.payload_bits + side,
+                          r.integrity_bits, 0)
 
 
 def _grow_stream(s: StreamState, machine: int, n_new: int, wire=0, payload=0,

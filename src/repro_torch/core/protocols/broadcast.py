@@ -30,6 +30,13 @@ the m views' W, L_M, alpha and fused-serve cache grow in one batched call.
 
 ``impl="host"`` runs the serial oracle (:class:`HostBroadcastGP`): one
 host-side scheme fit per machine and one dense solve per view per request.
+
+A fault plan (``DGPConfig.faults``) drops and NaN-poisons shards before the
+wire; its bit flips demote the broadcast rows whose CRC fails, so every
+view is assembled from the compacted survivors (under ``pallas``, B from
+one ``qgram_packed`` launch over their words).  A machine left empty is
+served as lost: the fusion renormalizes over the others, as it does for
+``predict(available=)`` (``base.serve_health`` reports both).
 """
 from __future__ import annotations
 
@@ -51,8 +58,8 @@ from ..nystrom import (
 from ..registry import FUSIONS, SCHEMES, ProtocolSpec, register_protocol
 from ..schemes import PerSymbolScheme
 from .base import (
-    FittedProtocol, PaddedShards, StreamState, WireState, _grow_stream, _mask_gram, _numpy,
-    pad_parts, params_on, parts_on,
+    FittedProtocol, PaddedShards, StreamState, WireState, _apply_fit_faults, _grow_stream,
+    _mask_gram, _numpy, _refuse_host_flips, pad_parts, params_on, parts_on,
 )
 
 __all__ = ["HostBroadcastGP", "fit_broadcast_host"]
@@ -107,8 +114,10 @@ class HostBroadcastGP:
 def fit_broadcast_host(parts, cfg, params: GPParams | None, device) -> HostBroadcastGP:
     """The serial §5.2 oracle: every machine encodes once, against the sum
     of the others' second moments, with its own host-side scheme fit;
-    shared hypers trained on ``device`` at machine 0 on its Nyström view."""
-    parts = parts_on(parts, device)
+    shared hypers trained on ``device`` at machine 0 on its Nyström view.
+    A fault plan's data faults apply; its bit flips are refused."""
+    _refuse_host_flips(cfg)
+    parts = parts_on(_apply_fit_faults(parts, cfg)[0], device)
     m, d = len(parts), parts[0][0].shape[1]
     S = [second_moment(X) if X.shape[0] else torch.zeros((d, d), device=device)
          for X, _ in parts]
@@ -235,13 +244,16 @@ def _view_sq_cols(sq_exact, sq_dec):
 def _fit_broadcast(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
     if cfg.gram_mode not in ("nystrom", "direct"):
         raise ValueError(f"unknown broadcast gram mode {cfg.gram_mode!r}")
+    parts, _ = _apply_fit_faults(parts, cfg)
     m = len(parts)
     shards = pad_parts(parts, device)
     d = shards.X.shape[-1]
     kernel, backend = cfg.kernel, cfg.gram_backend
     pack_bits = row_bits(cfg.bits_per_sample, d, cfg.max_bits)
+    # under a fault plan's flips the run demotes CRC-failing rows and
+    # compacts the shards: everything below reads the shards it returns
     run = SCHEMES.get(cfg.scheme).run(shards, cfg.bits_per_sample, cfg.max_bits,
-                                      "broadcast", 0)
+                                      "broadcast", 0, cfg.faults)
     wire, shards = run.state, run.shards
     n_pad = shards.X.shape[1]
     sq_exact = torch.sum(shards.X**2, -1)  # (m, n)
@@ -297,12 +309,13 @@ def _fit_broadcast(parts, cfg, params: GPParams | None, device) -> FittedProtoco
         factors = nystrom_factors(G_KK, G_KN, y_flat.expand(m, -1), noise)
         if cfg.serve_epilogue == "fused":
             factors.update(nystrom_serve_cache(factors))
-    data = {"Xs": shards.X, "mask": shards.mask, "sq_exact": sq_exact, "sq_dec": sq_dec}
+    data = {"Xs": shards.X, "mask": shards.mask, "sq_exact": sq_exact, "sq_dec": sq_dec,
+            **run.extras}
     return FittedProtocol(
         params=p, y=y_flat, factors=factors, data=data, wire=wire,
         stream=StreamState.make(
             shards.lengths, y_flat.shape[0], run.wire_bits, run.payload_bits,
-            run.integrity_bits, 0, device=device,
+            run.integrity_bits, run.rows_demoted, device=device,
         ),
         protocol="broadcast", kernel=kernel, gram_mode=cfg.gram_mode,
         fuse=cfg.fusion, gram_backend=backend, n_center=0,

@@ -54,8 +54,8 @@ from ..nystrom import (
 from ..registry import SCHEMES, ProtocolSpec, register_protocol
 from ..schemes import PerSymbolScheme
 from .base import (
-    FittedProtocol, StreamState, WireState, _grow_stream, _numpy, pad_parts, params_on,
-    parts_on, resolve_device,
+    FittedProtocol, StreamState, WireState, _apply_fit_faults, _grow_stream, _numpy,
+    _refuse_host_flips, pad_parts, params_on, parts_on, resolve_device,
 )
 
 __all__ = ["CenterGP", "quantize_to_center", "fit_center_host"]
@@ -85,12 +85,15 @@ def _quantize_to_center_host(parts, bits_per_sample: int, center: int = 0,
 
 
 def _quantize_to_center_batched(parts, bits_per_sample: int, center: int,
-                                max_bits: int, scheme: str, device):
+                                max_bits: int, scheme: str, device, faults=None):
     """Run the wire scheme for every machine at once, then assemble the
-    center's gram-row layout (exact center block first)."""
+    center's gram-row layout (exact center block first) from the shards the
+    run returns: under a fault plan's flips, the receiver's compacted
+    survivors."""
     shards = pad_parts(parts, device)
     m = shards.X.shape[0]
-    run = SCHEMES.get(scheme).run(shards, bits_per_sample, max_bits, "center", center)
+    run = SCHEMES.get(scheme).run(shards, bits_per_sample, max_bits, "center", center,
+                                  faults)
     wire_state, shards = run.state, run.shards
     L = shards.lengths
     order = [center] + [j for j in range(m) if j != center]
@@ -256,8 +259,11 @@ def fit_center_host(parts, cfg, params: GPParams | None, device) -> CenterGP:
     """The serial oracle (``impl="host"``): one host-side scheme fit per
     machine, hyperparameters trained on ``device`` on the completed gram,
     and the :class:`CenterGP` model.  Its ledgers are the batched fit's
-    formulas."""
+    formulas.  It has no packed plane, so it refuses a fault plan's bit
+    flips; the data faults apply."""
     _check_center(cfg, parts)
+    _refuse_host_flips(cfg)
+    parts, _ = _apply_fit_faults(parts, cfg)
     X_recon, y_all, wire, K, sq_norms = _quantize_to_center_host(
         parts, cfg.bits_per_sample, cfg.center, cfg.max_bits, device)
     d = X_recon.shape[1]
@@ -283,8 +289,10 @@ def _fit_center(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
     mode = cfg.gram_mode
     if mode not in ("nystrom", "nystrom_fitc", "direct"):
         raise ValueError(f"unknown center gram mode {mode!r}")
+    parts, _ = _apply_fit_faults(parts, cfg)
     X_recon, y_all, sq_norms, shards, run, order = _quantize_to_center_batched(
         parts, cfg.bits_per_sample, cfg.center, cfg.max_bits, cfg.scheme, device,
+        cfg.faults,
     )
     K = shards.lengths[cfg.center]
     d = X_recon.shape[1]
@@ -321,13 +329,13 @@ def _fit_center(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
         else torch.sum(X_recon**2, -1)
     data = {
         "Xc": X_recon[:K], "X_recon": X_recon, "sq_cols": sq_cols,
-        "sq_exact": sq_norms, "valid": torch.ones_like(y_all),
+        "sq_exact": sq_norms, "valid": torch.ones_like(y_all), **run.extras,
     }
     return FittedProtocol(
         params=p, y=y_all, factors=factors, data=data, wire=run.state,
         stream=StreamState.make(
             shards.lengths, y_all.shape[0], wire_bits, payload_bits,
-            run.integrity_bits, 0, device=device,
+            run.integrity_bits, run.rows_demoted, device=device,
         ),
         protocol="center", kernel=cfg.kernel, gram_mode=mode, fuse="",
         gram_backend=cfg.gram_backend, n_center=K, fit_lengths=shards.lengths,

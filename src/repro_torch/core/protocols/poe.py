@@ -15,6 +15,8 @@ expert's buffer at the shared cursor but are valid on their owner's expert
 only (the others get decoupled unit rows, as fit-time padding does), and
 each expert's dense factor is bordered in one batched call.  The ledgers
 do not move.  ``impl="host"`` runs the serial oracle (:class:`HostPoEGP`).
+A fault plan's dropped and NaN-poisoned shards leave their experts short or
+empty (an empty expert is served as lost); its bit flips are a no-op.
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ from ..linalg_safe import DEFAULT_JITTER
 from ..nystrom import chol_append_at
 from ..registry import FUSIONS, ProtocolSpec, register_protocol
 from .base import (
-    FittedProtocol, StreamState, _grow_stream, _mask_gram, _numpy, pad_parts, params_on,
-    parts_on,
+    FittedProtocol, StreamState, _apply_fit_faults, _grow_stream, _mask_gram, _numpy,
+    pad_parts, params_on, parts_on,
 )
 from .broadcast import _star_exact_products
 
@@ -66,14 +68,18 @@ class HostPoEGP:
 
 def fit_poe_host(parts, cfg, params: GPParams | None, device) -> HostPoEGP:
     """Shared hypers trained on ``device`` on machine 0's local data (the
-    PoE family shares one hyperparameter set across experts)."""
-    parts = parts_on(parts, device)
+    PoE family shares one hyperparameter set across experts).  Zero rate:
+    only a fault plan's data faults apply."""
+    parts = parts_on(_apply_fit_faults(parts, cfg)[0], device)
     p = train_gp(parts[0][0], parts[0][1], kernel=cfg.kernel,
                  params=params_on(params, device), steps=cfg.steps, lr=cfg.lr)
     return HostPoEGP(kernel=cfg.kernel, params=p, parts=parts, method=cfg.fusion)
 
 
 def _fit_poe(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
+    # zero rate: nothing crosses the wire, so only a plan's data faults apply
+    # (its flip_rate has no packed plane to corrupt and is a no-op)
+    parts, _ = _apply_fit_faults(parts, cfg)
     kernel, backend = cfg.kernel, cfg.gram_backend
     X0 = torch.as_tensor(parts[0][0], dtype=torch.float32, device=device)
     y0 = torch.as_tensor(parts[0][1], dtype=torch.float32, device=device)

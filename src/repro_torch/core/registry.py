@@ -1,14 +1,11 @@
 """Name registries of the port — counterpart of ``repro/core/registry.py``.
 
-Kernels, wire schemes and protocols are looked up by name, as in the
-reference, so ``DGPConfig`` validation and the ``fit``/``predict`` dispatch
-share one table each.  The port is built slice by slice: a name the
-reference knows but the port has not built yet is registered as *pending*
-with the slice that brings it.  It passes config validation (the config
-fields and their values are the reference's), and looking it up raises
-``NotImplementedError`` naming that slice.  ``FUSIONS`` holds
-:class:`FusionSpec` entries, registered by ``core/fusion.py`` (``kl``) and
-``core/poe.py`` (the PoE family).
+Kernels, wire schemes, fusions and protocols are looked up by name, as in
+the reference, so ``DGPConfig`` validation and the ``fit``/``predict``
+dispatch share one table each.  ``FUSIONS`` holds :class:`FusionSpec`
+entries, registered by ``core/fusion.py`` (``kl``) and ``core/poe.py`` (the
+PoE family); ``SCHEMES`` the wire schemes of ``protocols/wire.py``
+(``per_symbol`` and ``vq``).
 """
 from __future__ import annotations
 
@@ -25,13 +22,11 @@ __all__ = [
 
 class Registry:
     """A named table of components.  ``register`` rejects duplicates;
-    ``get`` raises ``ValueError`` listing the known names, or
-    ``NotImplementedError`` for a name still pending a later slice."""
+    ``get`` raises ``ValueError`` listing the known names."""
 
     def __init__(self, kind: str):
         self.kind = kind
         self._entries: dict[str, Any] = {}
-        self._pending: dict[str, str] = {}
 
     def register(self, name: str, entry: Any) -> Any:
         if not isinstance(name, str) or not name:
@@ -41,36 +36,19 @@ class Registry:
                 f"duplicate {self.kind} {name!r}: already registered "
                 f"(known {self.kind}s: {', '.join(self.names())})"
             )
-        self._pending.pop(name, None)
         self._entries[name] = entry
         return entry
-
-    def pending(self, name: str, where: str) -> None:
-        """Record a reference name the port has not built yet (``where``
-        names the ROADMAP slice that ports it)."""
-        if name not in self._entries:
-            self._pending[name] = where
-
-    def check(self, name: str) -> None:
-        """Config validation: accept registered and pending names."""
-        if name not in self._entries and name not in self._pending:
-            self.get(name)
 
     def get(self, name: str) -> Any:
         if name in self._entries:
             return self._entries[name]
-        if name in self._pending:
-            raise NotImplementedError(
-                f"{self.kind} {name!r} is not ported to repro_torch yet "
-                f"({self._pending[name]} in ROADMAP.md)"
-            )
         raise ValueError(
             f"unknown {self.kind} {name!r}: known {self.kind}s are "
             f"{', '.join(self.names())}"
         )
 
     def names(self) -> tuple[str, ...]:
-        return tuple(sorted(set(self._entries) | set(self._pending)))
+        return tuple(sorted(self._entries))
 
     def __contains__(self, name: str) -> bool:
         return name in self._entries
@@ -105,18 +83,25 @@ class FusionSpec:
 
 @dataclasses.dataclass(frozen=True)
 class SchemeSpec:
-    """A wire scheme: ``run(shards, bits, max_bits, mode, center)`` executes
-    the fit-time wire protocol for every machine at once and returns a
-    :class:`~repro_torch.core.protocols.base.WireRun`; ``reencode(art,
-    machine, X_new)`` sends new symbols under that machine's frozen
-    fit-time state for streaming ``update`` and returns a
-    :class:`~repro_torch.core.protocols.wire.Reencoded`.  (The reference
+    """A wire scheme: ``run(shards, bits, max_bits, mode, center,
+    faults=None)`` executes the fit-time wire protocol for every machine at
+    once and returns a :class:`~repro_torch.core.protocols.base.WireRun`
+    (a fault plan's bit flips demote the rows whose CRC fails);
+    ``reencode(art, machine, X_new)`` sends new symbols under that
+    machine's frozen fit-time state for streaming ``update`` and returns a
+    :class:`~repro_torch.core.protocols.wire.Reencoded`;
+    ``update_corrupt(art, machine, X_new, plan)``, where the scheme has a
+    packed plane to corrupt, sends them through a flipping channel and
+    returns ``(keep_idx, decoded, wire_add, payload_add, integrity_add,
+    demoted)``: the surviving rows, their received decodes, the ledger
+    increments of the WHOLE batch, and the demotion count.  (The reference
     keeps a second, jit-traced ``reencode_traced``; the port traces
     nothing, so one function serves every machine.)"""
 
     name: str
     run: Callable
     reencode: Callable | None = None  # (art, machine, X_new) -> Reencoded
+    update_corrupt: Callable | None = None  # (art, machine, X_new, plan) -> 6-tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,9 +121,6 @@ KERNELS = Registry("kernel")
 SCHEMES = Registry("scheme")
 FUSIONS = Registry("fusion")
 PROTOCOLS = Registry("protocol")
-
-# the reference's builtin names, pending until their slice lands
-SCHEMES.pending("vq", "queue 1, slice 6")
 
 
 def register_kernel(spec: KernelSpec) -> KernelSpec:

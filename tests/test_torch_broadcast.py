@@ -26,7 +26,6 @@ Tolerances and why:
 """
 import dataclasses
 import os
-import types
 
 import numpy as np
 import pytest
@@ -274,25 +273,15 @@ def test_cpu_path_launches_no_kernel():
     assert set(counts.values()) == {0}, counts
 
 
-def test_unported_broadcast_paths_raise_naming_their_slice(fits):
+def test_unported_broadcast_paths_raise_naming_their_slice():
+    # only the mesh substrate is still pending; health() and the vq scheme
+    # are ported (tests/test_torch_faults.py, tests/test_torch_vq.py)
     est = DistributedGP(DGPConfig(protocol="broadcast", gram_mode="direct"), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 7"):
         DistributedGP(dataclasses.replace(est.config, impl="mesh"), device="cpu").fit(
             parts=PARTS)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(TypeError, match="FittedProtocol"):
         est.health(None)
-    # update's pending branches on a broadcast artifact: a fault plan with
-    # flips (carried by a stand-in config: the port's DGPConfig refuses
-    # one) and the vq scheme's host channel
-    _, (art, _) = fits["xla", 0]
-    plan = types.SimpleNamespace(faults=types.SimpleNamespace(flip_rate=0.01))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        est.update(dataclasses.replace(art, config=plan), XQ[:2], XQ[:2, 0], machine=1)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        est.update(dataclasses.replace(art, scheme="vq"), XQ[:2], XQ[:2, 0], machine=1)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        DistributedGP(dataclasses.replace(est.config, scheme="vq"), device="cpu").fit(
-            parts=PARTS)
     with pytest.raises(ValueError, match="available mask has 3 entries"):
         _, (art, _) = (None, _port_run("xla", 0, **BROADCAST))
         DistributedGP(device="cpu").predict(art, XQ, available=[1, 1, 1])

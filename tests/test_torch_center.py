@@ -19,9 +19,7 @@ Tolerances and why:
 * cross-package checkpoints: 1e-5 — the same factors, served by the two
   packages' matmuls.
 """
-import dataclasses
 import os
-import types
 
 import numpy as np
 import pytest
@@ -232,25 +230,16 @@ def test_nonfinite_query_rows_get_the_prior(fits):
     np.testing.assert_array_equal(np.delete(mu2.numpy(), 2), np.delete(mu, 2))
 
 
-def test_unported_paths_raise_naming_their_slice(fits):
+def test_unported_paths_raise_naming_their_slice():
+    # only the mesh substrate is still pending; fault plans and the vq
+    # scheme are ported (tests/test_torch_faults.py, tests/test_torch_vq.py),
+    # and what they refuse they refuse as the reference does
     est = DistributedGP(device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        est.health(None)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        DGPConfig(faults=object())
     with pytest.raises(NotImplementedError, match="slice 7"):
         DistributedGP(DGPConfig(impl="mesh"), device="cpu").fit(parts=PARTS)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        DistributedGP(DGPConfig(scheme="vq"), device="cpu").fit(parts=PARTS)
     with pytest.raises(ValueError, match="known protocols"):
         DGPConfig(protocol="nope")
-    # update's pending branches: a batch through a corrupted channel (an
-    # artifact whose config carries a fault plan with flips; the port's
-    # DGPConfig refuses one, so a stand-in config carries it) and the vq
-    # scheme's host channel
-    _, (art, _, _) = fits["xla", 0]
-    plan = types.SimpleNamespace(faults=types.SimpleNamespace(flip_rate=0.01))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        est.update(dataclasses.replace(art, config=plan), XQ[:2], XQ[:2, 0], machine=1)
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        est.update(dataclasses.replace(art, scheme="vq"), XQ[:2], XQ[:2, 0], machine=1)
+    with pytest.raises(TypeError, match="FaultPlan"):
+        DGPConfig(faults=object())
+    with pytest.raises(TypeError, match="FittedProtocol"):
+        est.health(None)

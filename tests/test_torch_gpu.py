@@ -284,6 +284,100 @@ def test_streamed_paths_on_card(cuda, tmp_path, protocol, fusion):
     assert torch.equal(mu, mu2) and torch.equal(var, var2)
 
 
+def _card_vs_cpu(mu, var, mu_c, var_c):
+    for got, want in ((mu, mu_c), (var, var_c)):
+        want = want.numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, float(np.abs(want).max())))
+
+
+def _fault_plan():
+    from repro_torch import faults
+
+    return (faults.drop_machine(3) | faults.nan_shard(5)
+            | faults.corrupt_words(0.01, seed=7))
+
+
+@pytest.mark.parametrize("protocol", ["center", "broadcast"])
+def test_faulted_fit_on_card_matches_cpu(cuda, tmp_path, protocol):
+    """The same faulted fit on the card and on the CPU: the flip masks are
+    drawn on the CPU whatever the device, so the demotions, lengths and
+    ledgers are equal; the fit launches ``gram`` and one ``qgram_packed``
+    over the survivors' compacted words; the answers agree within 1e-4 of
+    scale, and save -> load is bitwise."""
+    parts, Xq = _fig6_like()
+    cfg = DGPConfig(protocol=protocol, gram_backend="pallas", steps=10, faults=_fault_plan())
+    est, cpu = DistributedGP(cfg), DistributedGP(cfg, device="cpu")
+    runtime.reset_launches()
+    art = est.fit(parts=parts)
+    assert {k: v for k, v in runtime.launches().items() if v} == {"gram": 1, "qgram_packed": 1}
+    art_c = cpu.fit(parts=parts)
+    assert art.rows_demoted == art_c.rows_demoted > 0
+    assert art.fit_lengths == art_c.fit_lengths and art.fit_lengths[3] == 0
+    assert (art.wire_bits, art.payload_bits, art.integrity_bits) == (
+        art_c.wire_bits, art_c.payload_bits, art_c.integrity_bits)
+    h = est.health(art)
+    assert h.status == "degraded" and h.machines_lost == (3,)
+    assert h.rows_demoted == art.rows_demoted
+    mu, var = est.predict(art, Xq)
+    _card_vs_cpu(mu, var, *cpu.predict(art_c, Xq))
+    est.save(art, str(tmp_path))
+    mu2, var2 = est.predict(est.load(str(tmp_path)), Xq)
+    assert torch.equal(mu, mu2) and torch.equal(var, var2)
+
+
+def test_degraded_broadcast_request_launches_the_epilogue(cuda, tmp_path):
+    """A broadcast request with machines masked out runs the fused
+    ``epilogue`` with those experts at weight 0 (one launch beside one
+    ``gram``), answers as the CPU serve of the same checkpoint does, and
+    never shrinks a KL-fused variance below the healthy request's."""
+    parts, Xq = _fig6_like()
+    cfg = DGPConfig(protocol="broadcast", gram_backend="pallas", steps=10,
+                    faults=_fault_plan())
+    est, cpu = DistributedGP(cfg), DistributedGP(cfg, device="cpu")
+    est.save(est.fit(parts=parts), str(tmp_path))
+    art, art_c = est.load(str(tmp_path)), cpu.load(str(tmp_path))
+    avail = np.ones(8, np.float32)
+    avail[[1, 3, 6]] = 0.0
+    _, var_h = est.predict(art, Xq)
+    runtime.reset_launches()
+    mu, var = est.predict(art, Xq, available=avail)
+    assert {k: v for k, v in runtime.launches().items() if v} == {"gram": 1, "epilogue": 1}
+    assert est.health(art, avail).variance_inflation == 8 / 5
+    assert bool((var >= var_h - 1e-6).all())
+    _card_vs_cpu(mu, var, *cpu.predict(art_c, Xq, available=avail))
+
+
+@pytest.mark.parametrize("protocol", ["center", "broadcast"])
+def test_vq_fit_on_card(cuda, tmp_path, protocol):
+    """``scheme="vq"`` on the card: the channel is built on the host and its
+    noise drawn on the CPU, so the card's fit has the CPU's ledgers; it runs
+    no kernel (the config's ``xla`` rule), answers within 1e-4 of scale of
+    the CPU fit, streams an update charged ceil(n R) and reloads bitwise."""
+    import math
+
+    parts, Xq = _fig6_like()
+    cfg = DGPConfig(protocol=protocol, scheme="vq", steps=10)
+    est, cpu = DistributedGP(cfg), DistributedGP(cfg, device="cpu")
+    runtime.reset_launches()
+    art = est.fit(parts=parts)
+    mu, var = est.predict(art, Xq)
+    assert set(runtime.launches().values()) == {0}
+    art_c = cpu.fit(parts=parts)
+    assert art.device.type == "cuda" and art.wire.codes.shape[-1] == 0
+    assert (art.wire_bits, art.payload_bits, art.integrity_bits) == (
+        art_c.wire_bits, art_c.payload_bits, 0)
+    _card_vs_cpu(mu, var, *cpu.predict(art_c, Xq))
+    rng = np.random.default_rng(3)
+    Xn = rng.normal(size=(16, 21)).astype(np.float32)
+    art2 = est.update(art, Xn, np.sin(Xn[:, 0]), machine=2)
+    assert art2.wire_bits - art.wire_bits == math.ceil(
+        16 * float(art.data["vq_rate_bits"][2]))
+    est.save(art2, str(tmp_path))
+    mu2, var2 = est.predict(est.load(str(tmp_path)), Xq)
+    assert all(torch.equal(a, b) for a, b in zip((mu2, var2), est.predict(art2, Xq)))
+
+
 def test_legacy_fixture_serves_on_card(cuda):
     """The committed format-v1 checkpoint (no config, unpacked codes) loads
     onto the card and serves as it does on the CPU, within 5e-5 of

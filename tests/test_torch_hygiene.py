@@ -31,6 +31,7 @@ def test_no_jax_or_repro_import_in_the_package():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
     assert PKG / "launch" / "fleet.py" in files and PKG / "core" / "fleet.py" in files
+    assert PKG / "faults.py" in files and PKG / "core" / "rate_distortion.py" in files
     bad = [
         f"{f.relative_to(PKG)}: {name}"
         for f in files for name in _imports(f)
@@ -51,6 +52,7 @@ import sys
 import numpy as np
 from repro_torch.core import DGPConfig, DistributedGP
 from repro_torch.core.fleet import FleetStack
+from repro_torch.faults import corrupt_words, drop_machine
 import repro_torch.launch.fleet
 rng = np.random.default_rng(0)
 X = rng.normal(size=(48, 4)).astype(np.float32)
@@ -63,6 +65,13 @@ for protocol in ("center", "broadcast", "poe"):
     assert mu.shape == (5,) and bool((var > 0).all())
     mu, var = FleetStack({0: art, 1: art}).predict([1, 0], np.stack([X[:5], X[5:10]]))
     assert mu.shape == (2, 5) and bool((var > 0).all())
+    plan = drop_machine(2) | corrupt_words(0.01, seed=1)  # poe: the flips are a no-op
+    est = DistributedGP(DGPConfig(protocol=protocol, steps=2, faults=plan), device="cpu")
+    assert est.health(est.fit(X, y, m=4)).machines_lost == (2,)
+for protocol in ("center", "broadcast"):
+    est = DistributedGP(DGPConfig(protocol=protocol, scheme="vq", steps=2), device="cpu")
+    art = est.fit(X, y, m=4)
+    assert art.wire_bits > 0 and bool((est.predict(art, X[:5])[1] > 0).all())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("BAD", bad)
