@@ -161,6 +161,25 @@ into a pass):
       bitwise, the CPU fit within ``FAULT_OUT_TOL``.  Prints fit seconds,
       request p50 / p99 and SMSE per path after the card's name and power
       limit.
+   j. the paper's §4 experiments (``paper_phase``), each through its
+      ``repro_torch.launch`` script at ``--full`` on the card and again on
+      the CPU: Fig. 2 (d = 20, n = 4000, R = 5..120 in steps of 5), Fig. 3
+      ((a)-(d): m = 1..19 on the d = 20 Gaussians, m = 2, 5, 10, 20, 40, 80
+      at d = 784 with 1000 points a digit), the bit ablation (R = 5..120),
+      Fig. 4 (n = 200, R = 1..8, 300 Adam steps, ``gram_backend="pallas"``)
+      and Fig. 7 (KIN40K-shaped, 40 machines, 15 inducing points, 250
+      steps, 2000 test points, R = 1..64, ``"pallas"``).  Checks: rates,
+      allocations, wire and side-info bits equal to the CPU's (Fig. 7's
+      allocations up to ``FIG7_RATE_FLIPS`` near-ties, its wire bits
+      exactly); distortions within ``PAPER_TOL`` of scale, Fig. 4's
+      MSEs within ``FIG4_TOL`` and Fig. 7's SMSE within ``FIG7_SMSE_TOL`` of
+      the CPU's; codes equal but within ``CODE_ULPS`` ulp of a bin edge
+      (counted); the paper's orderings at the reference tests' margins
+      (e_dr <= 1.01 e_pca at every m, e_opt <= 1.05 e_ps and e_ps < e_dr at
+      every R) wherever they hold on the CPU (one that the CPU breaks too is
+      printed as a finding); ``gram`` launches from zero exactly as the
+      docstring of ``paper_phase`` counts them, no kernel in Figs. 2, 3 and
+      the ablation.
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -890,6 +909,269 @@ def fault_phase(dev, parts, X_q, y_q, per_symbol, X_new, y_new, steps=150, batch
     print("[fault] path  fit s  request p50 / p99 ms  SMSE:  " + "  ".join(
         f"{n} {f:.3f} {p50:.3f}/{p99:.3f} {e:.4f}" for n, f, p50, p99, e in summary),
         flush=True)
+    return path_launches
+
+
+# phase j: the paper's §4 figures (Figs. 2, 3, 4, 7 and the bit ablation) at
+# their full settings, each on the card and again on the CPU (same code, same
+# seeds; the devices round their fp32 sums differently).  Limits, from the
+# H100 readings of this phase's first run with a margin of about ten:
+# - distortions of Figs. 2-3 and the ablation, |diff| as a fraction of the
+#   column's largest value in the same setting (a distortion near 0 at a
+#   large m or R is a difference of nearly equal sums): read 1.3e-7 (Fig.
+#   2), 2.2e-7 (Fig. 3), 1.0e-7 (ablation);
+PAPER_TOL = 2e-6
+# - Fig. 4's mean and sd MSE against the true GP and the correlation of the
+#   means, |diff| (nine GPs, 300 Adam steps each, on each device): read 3.3e-6;
+FIG4_TOL = 3e-5
+# - Fig. 7's SMSE, |diff| (40 local SGPRs, 250 Adam steps each, and rBCM):
+#   read 5.2e-5 (R = 2), the rest below;
+FIG7_SMSE_TOL = 5e-4
+# - Fig. 7's per-symbol allocations follow the trained inducing inputs, which
+#   the devices round apart, so a near-tie in Algorithm 1's greedy gains may
+#   go the other way: at most this many of the 39 x 7 (machine, R)
+#   allocations may differ (read: 0), each still summing to R, so the wire
+#   ledgers stay equal;
+FIG7_RATE_FLIPS = 3
+# - codes (Fig. 2's per-symbol roundtrips, the ablation's three
+#   allocations): equal except for symbols within CODE_ULPS ulp of a bin
+#   edge (read: 0 of 24 x 80000 and 0 of 24 x 80000 differ).
+CODE_ULPS = 2
+
+
+def _rows_close(tag, rows, rows_c, keys):
+    """Card rows against CPU rows: ``|a - b| <= PAPER_TOL x the column's
+    largest |b| in the same setting``; returns the largest gap as a
+    fraction of that scale."""
+    worst = 0.0
+    check([r["name"] for r in rows] == [r["name"] for r in rows_c],
+          f"paper {tag}: the card's rows differ from the CPU's in kind")
+    for k in keys:
+        scale = {}
+        for r in rows_c:
+            scale[r["name"]] = max(scale.get(r["name"], 0.0), abs(r["derived"][k]))
+        for g, w in zip(rows, rows_c):
+            a, b = g["derived"][k], w["derived"][k]
+            s = max(scale[w["name"]], 1e-30)
+            worst = max(worst, abs(a - b) / s)
+            check(abs(a - b) <= PAPER_TOL * s,
+                  f"paper {tag} {w['name']} {k}: card {a} vs CPU {b} "
+                  f"(limit {PAPER_TOL} x {s})")
+    return worst
+
+
+def _ordering(tag, holds, holds_c, what):
+    """An ordering that only the card breaks fails the phase; one that the
+    CPU breaks too is a finding about the paper's claim on this data."""
+    for key in holds:
+        if holds[key]:
+            continue
+        check(not holds_c[key], f"paper {tag}: {what} fails at {key} on the card only")
+        print(f"[paper] {tag}: FINDING {what} does not hold at {key} on the card nor "
+              "on the CPU", flush=True)
+
+
+def _code_flips(X, Xc, encode, edges_of):
+    """(flips, symbols near an edge) of one encode on the card against the
+    CPU; fails on a flip away from every edge.  ``edges_of`` gives the
+    (d, E) scaled edges, ``encode(X)`` the codes."""
+    import torch
+
+    codes, want = encode(X).cpu(), encode(Xc)
+    xs, edges = edges_of()
+    fin = torch.isfinite(edges)
+    e = torch.where(fin, edges, torch.zeros_like(edges))
+    ulp = torch.nextafter(e.abs(), torch.full_like(e, float("inf"))) - e.abs()
+    near = (((xs[:, :, None] - e[None]).abs() <= CODE_ULPS * ulp[None]) & fin[None]).any(-1)
+    flips = codes != want
+    check(not bool((flips & ~near).any()), "paper: a code differs from the CPU's away from "
+                                           "any bin edge")
+    return int(flips.sum()), int(near.sum())
+
+
+def paper_phase(dev):
+    """The paper's §4 experiments through ``repro_torch.launch``'s figure
+    scripts at ``--full``, on ``dev`` and on the CPU: integers equal,
+    floats within the limits above, the paper's orderings at the reference
+    tests' margins, and launches from zero exactly (``gram``: per Fig. 4
+    fit steps + 1 and one a grid request; Fig. 7 the rBCM's fit and
+    request, five an SGPR Adam step over all machines, two for their q(u),
+    and per R one for the pseudo-point gram and one for its serve; Figs. 2,
+    3 and the ablation none).  Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.gp_paper import FIG2, FIG4, FIG7
+    from repro_torch.core import quantizers as Q
+    from repro_torch.core.schemes import PerSymbolScheme
+    from repro_torch.core.transforms import make_decorrelating_transform
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import (
+        ablation_bits, fig2_distortion, fig3_pca, fig4_gp1d, fig7_sparse,
+    )
+
+    runtime.families()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    fig4_steps, fig7_steps = 300, 250
+    want = {
+        "fig2": 0, "fig3": 0, "ablation": 0,
+        "fig4": (1 + len(FIG4.rates)) * (fig4_steps + 2),
+        "fig7": 2 + 5 * fig7_steps + 2 + 2 * len(FIG7.rates),
+    }
+    # (tag, script, its options, torch threads of its CPU run: the Adam
+    # loops of Figs. 4 and 7 run their small matrices about twice as fast
+    # on one thread as on a pool, Fig. 4 9.5 s against 21.4 s on the
+    # builder's 8-core CPU, while Fig. 2's (n, d, E) comparisons want the pool)
+    runs = (("fig2", fig2_distortion, {}, None), ("fig3", fig3_pca, {}, None),
+            ("ablation", ablation_bits, {}, None),
+            ("fig4", fig4_gp1d, {"gram_backend": "pallas"}, 1),
+            ("fig7", fig7_sparse, {"gram_backend": "pallas"}, 1))
+    path_launches, out = {}, {}
+    for tag, mod, kw, cpu_threads in runs:
+        runtime.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        rows = mod.main(quick=False, device=dev, **kw)
+        sync()
+        secs = time.perf_counter() - t0
+        launches = runtime.launches()
+        path_launches[f"paper {tag}"] = launches
+        n_threads = torch.get_num_threads()
+        torch.set_num_threads(cpu_threads or n_threads)
+        t0 = time.perf_counter()
+        try:
+            rows_c = mod.main(quick=False, device="cpu", **kw)
+        finally:
+            torch.set_num_threads(n_threads)
+        secs_c = time.perf_counter() - t0
+        out[tag] = (rows, rows_c)
+        print(f"[paper] {tag}: {len(rows)} rows, {secs:.2f} s on {dev.type} (host clock), "
+              f"{secs_c:.2f} s on the CPU; launches {launches}", flush=True)
+        check(all(v == (want[tag] if k == "gram" else 0) for k, v in launches.items()),
+              f"paper {tag}: launches {launches}, expected gram {want[tag]} and no other")
+
+    # integers: rates, allocations, wire and side-info bits (Fig. 7 apart)
+    for tag in ("fig2", "fig3", "ablation", "fig4"):
+        rows, rows_c = out[tag]
+        check([r.get("ledger") for r in rows] == [r.get("ledger") for r in rows_c],
+              f"paper {tag}: the card's integers differ from the CPU's")
+    print("[paper] rates, allocations, wire_bits, side_info_bits: card == CPU (Figs. 2, 3, "
+          "4, ablation)", flush=True)
+
+    # Fig. 2: distortions, the ordering, the per-symbol codes
+    rows, rows_c = out["fig2"]
+    g2 = _rows_close("fig2", rows, rows_c, ("lb", "opt", "per_symbol", "dim_red"))
+    for r in rows:
+        e = r["derived"]
+        print(f"[paper] fig2 R={e['bits']:3d}  lb {e['lb']:.6g}  opt {e['opt']:.6g}  "
+              f"per_symbol {e['per_symbol']:.6g}  dim_red {e['dim_red']:.6g}", flush=True)
+    for what, f in (("e_opt <= 1.05 e_ps", lambda e: e["opt"] <= 1.05 * e["per_symbol"]),
+                    ("e_ps < e_dr", lambda e: e["per_symbol"] < e["dim_red"])):
+        _ordering("fig2", {r["derived"]["bits"]: f(r["derived"]) for r in rows},
+                  {r["derived"]["bits"]: f(r["derived"]) for r in rows_c}, what)
+    Qx, Qy, X_np = fig2_distortion.gaussian_setting(np.random.default_rng(0), 20, FIG2.n_train)
+    Xc = torch.from_numpy(X_np)
+    X = Xc.to(dev)
+    flips = near = 0
+    for R in FIG2.rates:
+        ps = PerSymbolScheme(R).fit(Qx, Qy)
+        T = torch.from_numpy(ps._tr.T.astype(np.float32))
+        edges = (Q.build_codebook_tables(int(ps.rates.max()))[0][ps.rates]
+                 * torch.from_numpy(ps.sigma)[:, None])
+        f, nr = _code_flips(X, Xc, ps.encode, lambda: (Xc @ T.T, edges))
+        flips, near = flips + f, near + nr
+    print(f"[paper] fig2 distortions card vs CPU: largest gap {g2:.2e} of the column's scale "
+          f"(limit {PAPER_TOL:.0e}); per-symbol codes over "
+          f"{len(FIG2.rates)} rates x {X_np.size} symbols: {flips} differ, all within "
+          f"{CODE_ULPS} ulp of an edge ({near} symbols lie that close)", flush=True)
+
+    # Fig. 3: distortions and Theorem 3's ordering
+    rows, rows_c = out["fig3"]
+    g3 = _rows_close("fig3", rows, rows_c, ("proposed", "pca"))
+    _ordering("fig3", {(r["name"], r["derived"]["m"]): r["derived"]["proposed"]
+                       <= 1.01 * r["derived"]["pca"] for r in rows},
+              {(r["name"], r["derived"]["m"]): r["derived"]["proposed"]
+               <= 1.01 * r["derived"]["pca"] for r in rows_c}, "e_dr <= 1.01 e_pca")
+    ratio = {}
+    for r in rows:
+        ratio.setdefault(r["name"], []).append(r["derived"]["ratio"])
+    print(f"[paper] fig3 card vs CPU: largest gap {g3:.2e} of the column's scale; "
+          "proposed / PCA from the smallest m to the largest: "
+          + "; ".join(f"{k[4:]} {v[0]:.4f} -> {v[-1]:.4f}" for k, v in ratio.items()),
+          flush=True)
+
+    # the ablation: distortions and the codes of each allocation
+    rows, rows_c = out["ablation"]
+    ga = _rows_close("ablation", rows, rows_c, ("greedy", "uniform", "waterfill_rounded"))
+    tr = make_decorrelating_transform(Qx, Qy)
+    T = torch.from_numpy(tr.T.astype(np.float32))
+    sigma = torch.from_numpy(np.sqrt(np.maximum(tr.variances, 0)).astype(np.float32))
+    flips = near = 0
+    for r in rows:
+        for rates in map(np.asarray, r["ledger"].values()):
+            edges = (Q.build_codebook_tables(int(max(rates.max(), 1)))[0][rates]
+                     * sigma[:, None])
+            f, nr = _code_flips(X, Xc, lambda x: ablation_bits.codes(x, tr, rates),
+                                lambda: (Xc @ T.T, edges))
+            flips, near = flips + f, near + nr
+    for r in rows:
+        e = r["derived"]
+        print(f"[paper] ablation R={e['R']:3d}  greedy {e['greedy']:.6g}  uniform x"
+              f"{e['uniform_penalty']:.3f}  waterfill_rounded x{e['wf_penalty']:.3f}",
+              flush=True)
+    print(f"[paper] ablation card vs CPU: largest gap {ga:.2e} of the column's scale; codes "
+          f"over {3 * len(rows)} allocations: {flips} differ, all within {CODE_ULPS} ulp of "
+          f"an edge ({near} symbols lie that close)", flush=True)
+
+    # Fig. 4: the posterior's distance to the true GP's, card vs CPU
+    rows, rows_c = out["fig4"]
+    worst = 0.0
+    for g, w in zip(rows, rows_c):
+        for k in ("mean_mse", "sd_mse", "corr_with_true"):
+            gap = abs(g["derived"][k] - w["derived"][k])
+            worst = max(worst, gap)
+            check(gap <= FIG4_TOL, f"paper fig4 R={w['derived']['R']} {k}: card "
+                                   f"{g['derived'][k]} vs CPU {w['derived'][k]}")
+        e = g["derived"]
+        print(f"[paper] fig4 R={e['R']}  mean_mse {e['mean_mse']:.4g}  sd_mse "
+              f"{e['sd_mse']:.4g}  corr {e['corr_with_true']:.4f}  fit {g['us_per_call'] / 1e6:.3f}"
+              f" s (CPU {w['derived']['mean_mse']:.4g} / {w['derived']['sd_mse']:.4g} / "
+              f"{w['derived']['corr_with_true']:.4f})", flush=True)
+    print(f"[paper] fig4 card vs CPU: largest |diff| {worst:.2e} (limit {FIG4_TOL:.0e})",
+          flush=True)
+
+    # Fig. 7: SMSE, ledgers, allocations
+    rows, rows_c = out["fig7"]
+    worst, rate_flips = 0.0, 0
+    for g, w in zip(rows, rows_c):
+        gap = abs(g["derived"]["smse"] - w["derived"]["smse"])
+        worst = max(worst, gap)
+        check(np.isfinite(g["derived"]["smse"]) and gap <= FIG7_SMSE_TOL,
+              f"paper fig7 {w['derived']['model']} R={w['derived']['R']}: SMSE card "
+              f"{g['derived']['smse']} vs CPU {w['derived']['smse']}")
+        if "ledger" in g:
+            R = g["derived"]["R"]
+            check(g["ledger"]["wire_bits"] == w["ledger"]["wire_bits"],
+                  f"paper fig7 R={R}: wire bits differ from the CPU's")
+            check(all(sum(v) == R for v in g["ledger"]["rates"]),
+                  f"paper fig7 R={R}: an allocation does not sum to R")
+            diff = [j + 1 for j, (a, b) in enumerate(zip(g["ledger"]["rates"],
+                                                          w["ledger"]["rates"])) if a != b]
+            rate_flips += len(diff)
+            if diff:
+                print(f"[paper] fig7 R={R}: machines {diff} allocate differently on the "
+                      "card and the CPU", flush=True)
+        e = g["derived"]
+        print(f"[paper] fig7 {e['model']:17s} R={e['R']:3d}  SMSE {e['smse']:.4f} (CPU "
+              f"{w['derived']['smse']:.4f})  wire {e.get('wire_kbits', 0.0):.3f} kbit", flush=True)
+    check(rate_flips <= FIG7_RATE_FLIPS, f"paper fig7: {rate_flips} allocations differ from "
+                                         f"the CPU's (limit {FIG7_RATE_FLIPS})")
+    rbcm = rows[0]["derived"]["smse"]
+    beats = [r["derived"]["R"] for r in rows[1:] if r["derived"]["smse"] < rbcm]
+    print(f"[paper] fig7 card vs CPU: SMSE largest |diff| {worst:.2e} (limit "
+          f"{FIG7_SMSE_TOL:.0e}); {rate_flips} of {39 * len(FIG7.rates)} allocations differ "
+          f"(limit {FIG7_RATE_FLIPS}); the sparse model beats rBCM ({rbcm:.4f}) at R = "
+          f"{beats or 'none'}", flush=True)
     return path_launches
 
 
@@ -2124,6 +2406,15 @@ def main():
         check(all(path_launches[f"fault {name}"][k] > 0 for k in kernels),
               f"fault {name}: a kernel of the path never launched")
     print(f"[fault] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # j. the paper's §4 figures at their full settings, card against CPU
+    t0 = time.perf_counter()
+    print(f"[paper] {smi}", flush=True)
+    path_launches.update(paper_phase(dev))
+    for tag in ("fig4", "fig7"):
+        check(path_launches[f"paper {tag}"]["gram"] > 0,
+              f"paper {tag}: the gram kernel never launched")
+    print(f"[paper] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"

@@ -6,10 +6,12 @@ exponential (eq. 65) ``k = s exp(-||x - x'||^2 / l^2)``, both written over
 inner products so the quantized-wire paths can feed estimated inner
 products straight in.  Hyperparameters are trained by Adam on the negative
 log marginal likelihood, a Python loop over autograd with the reference's
-update formula (not ``torch.optim.Adam``).
+update formula (not ``torch.optim.Adam``); :func:`train_gp` returns a
+:class:`GPModel`, the trained GP bound to its inputs.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, NamedTuple
 
@@ -30,6 +32,7 @@ __all__ = [
     "posterior_apply",
     "posterior_from_gram",
     "nlml_from_gram",
+    "GPModel",
     "make_adam_step",
     "train_gp",
 ]
@@ -173,14 +176,53 @@ def nlml_from_gram(G, y, noise_var):
     )
 
 
+@dataclasses.dataclass
+class GPModel:
+    """A trained GP bound to its (possibly reconstructed) inputs: X (n, d)
+    and y (n,) tensors on one device.  :meth:`predict` factorizes the train
+    gram once, at its first call (or at :meth:`factors`), and serves every
+    later query batch from the cached factors: one gram launch (the
+    query-train cross-gram) a request under ``gram_backend="pallas"``."""
+
+    kernel: str
+    params: GPParams
+    X: torch.Tensor
+    y: torch.Tensor
+    gram_backend: str = "xla"
+
+    def __post_init__(self):
+        self._factors = None
+
+    def factors(self) -> dict:
+        """The cached :func:`posterior_factors` of the train gram."""
+        if self._factors is None:
+            G = gram_fn(self.kernel, self.gram_backend)(self.params, self.X)
+            self._factors = posterior_factors(G, self.y, torch.exp(self.params.log_noise))
+        return self._factors
+
+    def predict(self, X_star):
+        """(mean, var) at ``X_star`` (moved to the model's device and dtype)."""
+        X_star = torch.as_tensor(X_star, dtype=self.X.dtype, device=self.X.device)
+        G_sn = gram_fn(self.kernel, self.gram_backend)(self.params, X_star, self.X)
+        g_ss = prior_diag(self.kernel, self.params, torch.sum(X_star**2, -1))
+        return posterior_apply(self.factors(), G_sn, g_ss)
+
+    def nlml(self) -> torch.Tensor:
+        G = gram_fn(self.kernel, self.gram_backend)(self.params, self.X)
+        return nlml_from_gram(G, self.y, torch.exp(self.params.log_noise))
+
+
 def make_adam_step(loss: Callable, lr: float) -> Callable:
     """One Adam update ``step(i, params, m, v) -> (params, m, v)`` on the
-    scalar ``loss(params)`` — the reference's inline Adam, term for term."""
+    scalar ``loss(params)`` — the reference's inline Adam, term for term.
+    ``params`` is a named tuple of tensors (``GPParams``, or the sparse
+    GP's hyperparameters and inducing inputs); the step returns its type."""
     b1, b2, eps = 0.9, 0.999, 1e-8
 
     def step(i, p, m, v):
+        cls = type(p)
         leaves = [t.detach().requires_grad_(True) for t in p]
-        g = torch.autograd.grad(loss(GPParams(*leaves)), leaves, allow_unused=True)
+        g = torch.autograd.grad(loss(cls(*leaves)), leaves, allow_unused=True)
         g = [torch.zeros_like(a) if gg is None else gg for a, gg in zip(leaves, g)]
         m = [b1 * a + (1 - b1) * gg for a, gg in zip(m, g)]
         v = [b2 * a + (1 - b2) * gg * gg for a, gg in zip(v, g)]
@@ -189,7 +231,7 @@ def make_adam_step(loss: Callable, lr: float) -> Callable:
             a.detach() - lr * (mm / (1 - b1**t)) / (torch.sqrt(vv / (1 - b2**t)) + eps)
             for a, mm, vv in zip(p, m, v)
         ]
-        return GPParams(*p), m, v
+        return cls(*p), m, v
 
     return step
 
@@ -203,12 +245,14 @@ def train_gp(
     lr: float = 0.05,
     gram_override: Callable | None = None,
     gram_backend: str = "xla",
-) -> GPParams:
+) -> GPModel:
     """Maximize the marginal likelihood with ``steps`` Adam steps and return
-    the trained parameters.  ``gram_override(params) -> G`` trains on an
-    externally assembled gram (e.g. the center's Nyström completion);
-    otherwise the gram is built from ``X`` (through the gram kernel for
-    ``gram_backend="pallas"``, differentiable through its backward)."""
+    the trained :class:`GPModel` on X's device (the callers that train on
+    an assembled gram take its ``.params``).  ``gram_override(params) -> G``
+    trains on an externally assembled gram (e.g. the center's Nyström
+    completion); otherwise the gram is built from ``X`` (through the gram
+    kernel for ``gram_backend="pallas"``, differentiable through its
+    backward)."""
     params = params if params is not None else init_params(device=X.device)
     k = gram_fn(kernel, gram_backend)
 
@@ -221,4 +265,5 @@ def train_gp(
     v = [torch.zeros_like(a) for a in params]
     for i in range(steps):
         params, m, v = step(i, params, m, v)
-    return GPParams(*(a.detach() for a in params))
+    return GPModel(kernel=kernel, params=GPParams(*(a.detach() for a in params)), X=X, y=y,
+                   gram_backend=gram_backend)

@@ -254,6 +254,10 @@ class FittedProtocol:
     def rows_demoted(self) -> int:
         return int(self.stream.rows_demoted)
 
+    def predict(self, X_star, available=None):
+        """Serve one query batch from the cached factors — see :func:`predict`."""
+        return predict(self, X_star, available)
+
     def health(self, available=None) -> "ServeHealth":
         """Degradation status of this artifact — see :func:`serve_health`."""
         return serve_health(self, available)

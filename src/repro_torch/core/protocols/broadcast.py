@@ -30,6 +30,7 @@ the m views' W, L_M, alpha and fused-serve cache grow in one batched call.
 
 ``impl="host"`` runs the serial oracle (:class:`HostBroadcastGP`): one
 host-side scheme fit per machine and one dense solve per view per request.
+:func:`broadcast_gp` is the reference's one-call entry point.
 
 A fault plan (``DGPConfig.faults``) drops and NaN-poisons shards before the
 wire; its bit flips demote the broadcast rows whose CRC fails, so every
@@ -45,6 +46,7 @@ import dataclasses
 import torch
 
 from ...comm.accounting import integrity_bits_formula, payload_bits_formula, row_bits
+from .. import quantizers as Q
 from ..distortion import second_moment
 from ..gp import (
     GPParams, gram_fn, kernel_from_inner, posterior_apply, posterior_factors,
@@ -57,12 +59,13 @@ from ..nystrom import (
 )
 from ..registry import FUSIONS, SCHEMES, ProtocolSpec, register_protocol
 from ..schemes import PerSymbolScheme
+from . import base
 from .base import (
     FittedProtocol, PaddedShards, StreamState, WireState, _apply_fit_faults, _grow_stream,
     _mask_gram, _numpy, _refuse_host_flips, pad_parts, params_on, parts_on,
 )
 
-__all__ = ["HostBroadcastGP", "fit_broadcast_host"]
+__all__ = ["HostBroadcastGP", "fit_broadcast_host", "broadcast_gp"]
 
 
 @dataclasses.dataclass
@@ -140,7 +143,7 @@ def fit_broadcast_host(parts, cfg, params: GPParams | None, device) -> HostBroad
         return nystrom_complete(k(p, Xc), k(p, Xc, X0))
 
     p = train_gp(X0, y0, kernel=cfg.kernel, params=params_on(params, device),
-                 steps=cfg.steps, lr=cfg.lr, gram_override=gram0)
+                 steps=cfg.steps, lr=cfg.lr, gram_override=gram0).params
     lengths = [X.shape[0] for X, _ in parts]
     return HostBroadcastGP(
         kernel=cfg.kernel, params=p, parts=parts, decoded=decoded, wire_bits=wire,
@@ -241,6 +244,25 @@ def _view_sq_cols(sq_exact, sq_dec):
     return sq_cols.reshape(m, -1)
 
 
+def broadcast_gp(parts, bits_per_sample: int, X_star, kernel: str = "se", steps: int = 150,
+                 lr: float = 0.05, fuse: str = "kl", gram_mode: str = "nystrom",
+                 impl: str = "batched", gram_backend: str = "xla",
+                 max_bits: int = Q.DEFAULT_MAX_BITS, train_impl: str = "scan", device=None):
+    """The full §5.2 protocol in one call: fit on ``device`` (the card when
+    None), serve ``X_star`` fused by ``fuse``.  Returns ``(mu, var,
+    wire_bits, params)``.  A thin composition over :func:`~.base.fit`;
+    ``impl="host"`` fits the serial oracle."""
+    from ..config import DGPConfig
+
+    cfg = DGPConfig(protocol="broadcast", kernel=kernel, fusion=fuse, impl=impl,
+                    gram_mode=gram_mode, bits_per_sample=int(bits_per_sample),
+                    max_bits=int(max_bits), steps=int(steps), lr=float(lr),
+                    gram_backend=gram_backend, train_impl=train_impl)
+    model = base.fit(parts, cfg, None, device)
+    mu, s2 = model.predict(X_star)
+    return mu, s2, model.wire_bits, model.params
+
+
 def _fit_broadcast(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
     if cfg.gram_mode not in ("nystrom", "direct"):
         raise ValueError(f"unknown broadcast gram mode {cfg.gram_mode!r}")
@@ -277,7 +299,7 @@ def _fit_broadcast(parts, cfg, params: GPParams | None, device) -> FittedProtoco
         return nystrom_complete(G_KK, G_KN)
 
     p = train_gp(X0, y0, kernel=kernel, params=params_on(params, device), steps=cfg.steps,
-                 lr=cfg.lr, gram_override=gram0)
+                 lr=cfg.lr, gram_override=gram0).params
     noise = torch.exp(p.log_noise)
 
     # ---- factorize every machine's local predictive at once (the

@@ -30,6 +30,7 @@ center block is one ``gram`` launch.
 ``impl="host"`` runs the serial oracle the batched artifact is held
 against: one host-side scheme fit per machine (``schemes.PerSymbolScheme``)
 and a :class:`CenterGP` model that refactorizes on every ``predict``.
+:func:`single_center_gp` is the reference's one-call entry point.
 """
 from __future__ import annotations
 
@@ -53,12 +54,13 @@ from ..nystrom import (
 )
 from ..registry import SCHEMES, ProtocolSpec, register_protocol
 from ..schemes import PerSymbolScheme
+from . import base
 from .base import (
     FittedProtocol, StreamState, WireState, _apply_fit_faults, _grow_stream, _numpy,
     _refuse_host_flips, pad_parts, params_on, parts_on, resolve_device,
 )
 
-__all__ = ["CenterGP", "quantize_to_center", "fit_center_host"]
+__all__ = ["CenterGP", "quantize_to_center", "fit_center_host", "single_center_gp"]
 
 
 def _quantize_to_center_host(parts, bits_per_sample: int, center: int = 0,
@@ -280,8 +282,27 @@ def fit_center_host(parts, cfg, params: GPParams | None, device) -> CenterGP:
     )
     model.params = train_gp(X_recon, y_all, kernel=cfg.kernel,
                             params=params_on(params, device), steps=cfg.steps, lr=cfg.lr,
-                            gram_override=model._gram)
+                            gram_override=model._gram).params
     return model
+
+
+def single_center_gp(parts, bits_per_sample: int, kernel: str = "se", steps: int = 150,
+                     lr: float = 0.05, params: GPParams | None = None,
+                     gram_mode: str = "nystrom", impl: str = "batched",
+                     gram_backend: str = "xla", max_bits: int = Q.DEFAULT_MAX_BITS,
+                     train_impl: str = "scan", device=None):
+    """The full §5.1 protocol in one call: quantize in, Nyström-complete
+    (eq. 61), train the hyperparameters on the completion, and return the
+    predictor on ``device`` (the card when None) — the serving artifact
+    (``.predict(X_star)``), or the :class:`CenterGP` oracle for
+    ``impl="host"``.  A thin composition over :func:`~.base.fit`."""
+    from ..config import DGPConfig
+
+    cfg = DGPConfig(protocol="center", kernel=kernel, impl=impl, gram_backend=gram_backend,
+                    gram_mode=gram_mode, bits_per_sample=int(bits_per_sample),
+                    max_bits=int(max_bits), steps=int(steps), lr=float(lr),
+                    train_impl=train_impl)
+    return base.fit(parts, cfg, params, device)
 
 
 def _fit_center(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
@@ -310,7 +331,7 @@ def _fit_center(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
     p = train_gp(
         X_recon, y_all, kernel=cfg.kernel, params=params_on(params, device), steps=cfg.steps,
         lr=cfg.lr, gram_override=builder._gram,
-    )
+    ).params
     noise = torch.exp(p.log_noise)
     if mode == "nystrom":
         G_KK, G_KN = builder.gram_blocks(p)

@@ -15,6 +15,7 @@ expert's buffer at the shared cursor but are valid on their owner's expert
 only (the others get decoupled unit rows, as fit-time padding does), and
 each expert's dense factor is bordered in one batched call.  The ledgers
 do not move.  ``impl="host"`` runs the serial oracle (:class:`HostPoEGP`).
+:func:`poe_baseline` is the reference's one-call entry point.
 A fault plan's dropped and NaN-poisoned shards leave their experts short or
 empty (an empty expert is served as lost); its bit flips are a no-op.
 """
@@ -31,13 +32,14 @@ from ..gp import (
 from ..linalg_safe import DEFAULT_JITTER
 from ..nystrom import chol_append_at
 from ..registry import FUSIONS, ProtocolSpec, register_protocol
+from . import base
 from .base import (
     FittedProtocol, StreamState, _apply_fit_faults, _grow_stream, _mask_gram, _numpy,
     pad_parts, params_on, parts_on,
 )
 from .broadcast import _star_exact_products
 
-__all__ = ["HostPoEGP", "fit_poe_host"]
+__all__ = ["HostPoEGP", "fit_poe_host", "poe_baseline"]
 
 
 @dataclasses.dataclass
@@ -72,8 +74,26 @@ def fit_poe_host(parts, cfg, params: GPParams | None, device) -> HostPoEGP:
     only a fault plan's data faults apply."""
     parts = parts_on(_apply_fit_faults(parts, cfg)[0], device)
     p = train_gp(parts[0][0], parts[0][1], kernel=cfg.kernel,
-                 params=params_on(params, device), steps=cfg.steps, lr=cfg.lr)
+                 params=params_on(params, device), steps=cfg.steps, lr=cfg.lr).params
     return HostPoEGP(kernel=cfg.kernel, params=p, parts=parts, method=cfg.fusion)
+
+
+def poe_baseline(parts, X_star, kernel: str = "se", method: str = "rbcm", steps: int = 150,
+                 lr: float = 0.05, impl: str = "batched", gram_backend: str = "xla",
+                 train_impl: str = "scan", device=None):
+    """Zero-rate baselines in one call: each machine an expert on its local
+    data only, the experts' predictions at ``X_star`` combined by PoE / BCM
+    / rBCM (``method``).  Returns ``(mu, s2, params)`` on ``device`` (the
+    card when None).  A thin composition over :func:`~.base.fit` and
+    :func:`~.base.predict`; ``impl="host"`` fits the serial oracle."""
+    from ..config import DGPConfig
+
+    cfg = DGPConfig(protocol="poe", kernel=kernel, fusion=method, impl=impl,
+                    bits_per_sample=0, steps=int(steps), lr=float(lr),
+                    gram_backend=gram_backend, train_impl=train_impl)
+    model = base.fit(parts, cfg, None, device)
+    mu, s2 = model.predict(X_star)
+    return mu, s2, model.params
 
 
 def _fit_poe(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
@@ -84,7 +104,7 @@ def _fit_poe(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
     X0 = torch.as_tensor(parts[0][0], dtype=torch.float32, device=device)
     y0 = torch.as_tensor(parts[0][1], dtype=torch.float32, device=device)
     p = train_gp(X0, y0, kernel=kernel, params=params_on(params, device), steps=cfg.steps,
-                 lr=cfg.lr)
+                 lr=cfg.lr).params
     noise = torch.exp(p.log_noise)
     shards = pad_parts(parts, device)
     m, n, d = shards.X.shape

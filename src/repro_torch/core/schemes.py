@@ -1,12 +1,28 @@
-"""The §4.2 per-symbol scheme as the host oracles run it — the
-``PerSymbolScheme`` of ``repro/core/schemes.py``.
+"""The paper's transmission schemes behind one fit / roundtrip API (§4) —
+counterpart of ``repro/core/schemes.py``.
 
-The fit runs on the host in float64 numpy (the decorrelating transform,
-Algorithm-1 greedy allocation), as the reference's does; encode and decode
-are tensor ops on the symbols' device.  The batched protocols use
-``torch_scheme`` instead: one fit for every machine at once, on the
-device.  ``OptimalScheme``, ``DimReductionScheme`` and ``PCAScheme`` come
-with queue 1, slice 6 in ROADMAP.md.
+Every scheme answers: given dataset X at machine M_x and the receiver-side
+covariance Q_y, produce a wire message of bounded size whose decoding X̂
+minimizes the inner-product distortion (7).
+
+* ``OptimalScheme``      — §4.1, the Theorem-2 Gaussian test channel at the
+                           Theorem-1 rate (simulated: block coding is
+                           exponential, as the paper notes).
+* ``PerSymbolScheme``    — §4.2, decorrelate + greedy bit loading + scalar
+                           equiprobable-bin quantizer.  The practical one.
+* ``DimReductionScheme`` — §4.3, the Theorem-3 projection (16 bits a
+                           coefficient, as in the paper's Fig. 2).
+* ``PCAScheme``          — the PCA projection baseline (Fig. 3).
+
+The fits run on the host in float64 numpy, as the reference's do; encode,
+decode and roundtrip are tensor ops on the symbols' device.  The batched
+protocols use ``torch_scheme`` instead: one per-symbol fit for every
+machine at once, on the device.  Wire costs (bits) follow the paper's §4
+cost analysis; side info (covariances, d x d fp32) is reported apart, as
+the paper amortizes it.  Where the reference takes a PRNG key, the test
+channel takes ``(seed, stream)`` and draws its noise from
+:func:`~repro_torch.core.rate_distortion.channel_noise`; the deterministic
+schemes accept and ignore them.
 """
 from __future__ import annotations
 
@@ -17,9 +33,10 @@ import torch
 
 from ..comm.accounting import side_info_bits
 from . import quantizers as Q
-from .transforms import make_decorrelating_transform
+from . import rate_distortion as rd
+from .transforms import make_decorrelating_transform, make_dim_reduction, make_pca
 
-__all__ = ["PerSymbolScheme"]
+__all__ = ["PerSymbolScheme", "OptimalScheme", "DimReductionScheme", "PCAScheme"]
 
 
 def _f32(a, device) -> torch.Tensor:
@@ -61,8 +78,79 @@ class PerSymbolScheme:
                           torch.from_numpy(self.rates).to(dev), self._cents.to(dev))
         return Xp @ _f32(self._tr.T_inv, dev).T
 
+    def roundtrip(self, X, seed=None, stream: int = 0) -> torch.Tensor:
+        return self.decode(self.encode(X))
+
     def wire_bits(self, n: int) -> int:
         return int(self.rates.sum()) * n
 
     def side_info_bits(self, d: int) -> int:
         return side_info_bits(d)  # Qx and Qy exchanged (paper: O(2 d^2 + R n))
+
+
+@dataclasses.dataclass
+class OptimalScheme:
+    """The Theorem-2 test channel at the Theorem-1 rate (simulated block
+    coding)."""
+
+    bits_per_sample: float
+
+    def fit(self, Qx, Qy):
+        D = rd.distortion_for_rate(Qx, Qy, self.bits_per_sample)
+        self.channel = rd.make_test_channel(Qx, Qy, D)
+        self.expected_distortion = self.channel.distortion
+        return self
+
+    def roundtrip(self, X, seed: int, stream: int = 0) -> torch.Tensor:
+        """X̂ = X A^T + N W^½^T on X's device, the noise N keyed by
+        ``(seed, stream)``."""
+        return rd.sample_test_channel(self.channel, torch.as_tensor(X), seed, stream)
+
+    def wire_bits(self, n: int) -> int:
+        return int(np.ceil(self.channel.rate_bits * n))
+
+    def side_info_bits(self, d: int) -> int:
+        return side_info_bits(d)
+
+
+@dataclasses.dataclass
+class DimReductionScheme:
+    """The Theorem-3 projection; m coefficients x ``coeff_bits`` bits each."""
+
+    m: int
+    coeff_bits: int = 16  # the paper's Fig. 2 assumption
+
+    def fit(self, Sx, Sy):
+        self.dr = make_dim_reduction(Sx, Sy, self.m)
+        self.expected_distortion = self.dr.left_out
+        return self
+
+    def encode(self, X) -> torch.Tensor:
+        X = torch.as_tensor(X)
+        return X @ _f32(self.dr.P, X.device).T
+
+    def decode(self, Z) -> torch.Tensor:
+        return Z @ _f32(self.dr.U, Z.device).T
+
+    def roundtrip(self, X, seed=None, stream: int = 0) -> torch.Tensor:
+        return self.decode(self.encode(X))
+
+    def wire_bits(self, n: int) -> int:
+        d = self.dr.U.shape[0]
+        return self.coeff_bits * (self.m * n + self.m * d)  # the z's and U (paper §4.3)
+
+    def side_info_bits(self, d: int) -> int:
+        return d * d * 32  # S_y only
+
+
+@dataclasses.dataclass
+class PCAScheme(DimReductionScheme):
+    """The PCA baseline (uses S_x only)."""
+
+    def fit(self, Sx, Sy=None):
+        self.dr = make_pca(Sx, self.m)
+        self.expected_distortion = None  # PCA's objective is not (7)
+        return self
+
+    def side_info_bits(self, d: int) -> int:
+        return 0

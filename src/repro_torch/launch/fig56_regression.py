@@ -25,20 +25,18 @@ Each row printed is ``fig56_<dataset>_<kernel>,<fit seconds>,model=...|R=...
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
 import torch
 
 from ..core import DGPConfig, DistributedGP
-from ..core.gp import (
-    GPParams, gram_fn, posterior_apply, posterior_factors, prior_diag, train_gp,
-)
+from ..core.gp import GPModel, GPParams, train_gp
 from ..core.protocols.base import params_on, resolve_device
 from ..data.synthetic import regression_dataset
+from .common import machine_parts, smse
 
-__all__ = ["MODELS", "FullGP", "fit_full", "fit_model", "machine_parts", "model_config",
+__all__ = ["MODELS", "fit_full", "fit_model", "machine_parts", "model_config",
            "run_dataset", "smse", "main"]
 
 # every model this script knows; the reference's figure draws the first five
@@ -46,20 +44,6 @@ __all__ = ["MODELS", "FullGP", "fit_full", "fit_model", "machine_parts", "model_
 MODELS = ("full", "bcm", "rbcm", "center_nystrom", "center_direct", "center_nystrom_fitc",
           "broadcast_nystrom", "broadcast_direct")
 ZERO_RATE = ("full", "bcm", "rbcm")
-
-
-def smse(y_true, y_pred) -> float:
-    """Standardized mean squared error (``benchmarks/common.py``)."""
-    y_true = np.asarray(y_true)
-    y_pred = np.asarray(y_pred)
-    return float(np.mean((y_true - y_pred) ** 2) / np.var(y_true))
-
-
-def machine_parts(X, y, m: int, seed: int = 0):
-    """A uniform random split over ``m`` machines from a seeded numpy
-    permutation: ``[(X_j, y_j), ...]``."""
-    perm = np.random.default_rng(seed).permutation(X.shape[0])
-    return [(X[c], y[c]) for c in np.array_split(perm, m)]
 
 
 def model_config(model: str, kernel: str, R: int, steps: int,
@@ -73,40 +57,24 @@ def model_config(model: str, kernel: str, R: int, steps: int,
                      bits_per_sample=int(R), steps=steps, gram_backend=gram_backend)
 
 
-@dataclasses.dataclass
-class FullGP:
-    """The full GP on the pooled data (the SD reference of the figure):
-    trained hyperparameters and the dense factors of its predictive."""
-
-    kernel: str
-    params: GPParams
-    X: torch.Tensor
-    factors: dict
-    gram_backend: str = "xla"
-
-    def predict(self, X_star):
-        X_star = torch.as_tensor(X_star, dtype=torch.float32, device=self.X.device)
-        k = gram_fn(self.kernel, self.gram_backend)
-        g_ss = prior_diag(self.kernel, self.params, torch.sum(X_star**2, -1))
-        return posterior_apply(self.factors, k(self.params, X_star, self.X), g_ss)
-
-
 def fit_full(X, y, kernel: str, steps: int, gram_backend: str = "xla", device=None,
-             params: GPParams | None = None) -> FullGP:
-    """Train the full GP on all of ``(X, y)`` and factorize its predictive."""
+             params: GPParams | None = None) -> GPModel:
+    """Train the full GP on all of ``(X, y)`` and factorize its predictive
+    (at fit time, so that a request is one cross-gram)."""
     device = resolve_device(device)
     X = torch.as_tensor(X, dtype=torch.float32, device=device)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
-    p = train_gp(X, y, kernel=kernel, params=params_on(params, device), steps=steps,
-                 gram_backend=gram_backend)
-    G = gram_fn(kernel, gram_backend)(p, X)
-    return FullGP(kernel, p, X, posterior_factors(G, y, torch.exp(p.log_noise)), gram_backend)
+    full = train_gp(X, y, kernel=kernel, params=params_on(params, device), steps=steps,
+                    gram_backend=gram_backend)
+    full.factors()
+    return full
 
 
 def fit_model(model: str, parts, kernel: str, R: int, steps: int, gram_backend: str = "xla",
               device=None, params: GPParams | None = None):
     """Fit one model of the figure; returns ``predict(X_star) -> (mu, var)``
-    and the fitted object (a :class:`FullGP`, or the protocol's artifact)."""
+    and the fitted object (the full GP's :class:`GPModel`, or the
+    protocol's artifact)."""
     if model == "full":
         X = np.concatenate([p[0] for p in parts])
         y = np.concatenate([p[1] for p in parts])

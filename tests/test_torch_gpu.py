@@ -912,3 +912,94 @@ def test_quant_decode_plan_edges_bitwise(cuda, n, d, C, layout):
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
     outside = (codes < 0) | (codes >= C)
     assert not bool(got[outside].view(torch.int32).any())  # +0.0, not -0.0
+
+
+# ---- the paper's §4 schemes, GPModel and the sparse GP on the card --------
+# (card vs CPU: tests/test_torch_paper_schemes.py and
+# tests/test_torch_sparse_gp.py hold the CPU against the reference)
+
+def _paper_setting(d=10, n=2000, seed=0):
+    rng = np.random.default_rng(seed)
+    A, B = rng.normal(size=(d, d)), rng.normal(size=(d, d))
+    Qx, Qy = A @ A.T / d, B @ B.T / d
+    X = torch.from_numpy(rng.multivariate_normal(np.zeros(d), Qx, size=n).astype(np.float32))
+    return Qx, Qy, X
+
+
+def test_dim_reduction_and_scheme_roundtrips_card_vs_cpu(cuda):
+    from repro_torch.core import quantizers as Q
+    from repro_torch.core.schemes import (
+        DimReductionScheme, OptimalScheme, PCAScheme, PerSymbolScheme,
+    )
+    from repro_torch.core.transforms import dr_decode, dr_encode, make_dim_reduction, make_pca
+
+    Qx, Qy, X = _paper_setting()
+    for dr in (make_dim_reduction(Qx, Qy, 4), make_pca(Qx, 4)):
+        Z = dr_encode(dr, X.to(cuda))
+        assert Z.device.type == "cuda"
+        _close(Z.cpu().numpy(), dr_encode(dr, X).numpy())
+        _close(dr_decode(dr, Z).cpu().numpy(), dr_decode(dr, dr_encode(dr, X)).numpy())
+    for sch in (DimReductionScheme(3).fit(Qx, Qy), PCAScheme(3).fit(Qx),
+                OptimalScheme(24).fit(Qx, Qy)):
+        got = sch.roundtrip(X.to(cuda), 7)
+        assert got.device.type == "cuda"
+        _close(got.cpu().numpy(), sch.roundtrip(X, 7).numpy())
+    # per-symbol: the codes equal the CPU's except within 2 ulp of a bin edge
+    ps = PerSymbolScheme(24).fit(Qx, Qy)
+    codes, want = ps.encode(X.to(cuda)).cpu(), ps.encode(X)
+    xp = X @ torch.from_numpy(ps._tr.T.astype(np.float32)).T
+    edges = Q.build_codebook_tables(int(ps.rates.max()))[0][ps.rates] \
+        * torch.from_numpy(ps.sigma)[:, None]
+    fin = torch.isfinite(edges)
+    e = torch.where(fin, edges, torch.zeros_like(edges))
+    ulp = torch.nextafter(e.abs(), torch.full_like(e, float("inf"))) - e.abs()
+    near = (((xp[:, :, None] - e[None]).abs() <= 2 * ulp[None]) & fin[None]).any(-1)
+    flips = codes != want
+    assert not bool((flips & ~near).any())
+    same = ~flips.any(1)
+    _close(ps.roundtrip(X.to(cuda)).cpu().numpy()[same.numpy()],
+           ps.roundtrip(X).numpy()[same.numpy()])
+
+
+def test_gp_model_and_sparse_gp_through_the_gram_kernel(cuda):
+    from repro_torch.core.gp import GPModel, init_params
+    from repro_torch.core.sparse_gp import SGPR, elbo, train_sgpr
+
+    rng = np.random.default_rng(1)
+    X = torch.from_numpy(rng.normal(size=(300, 3)).astype(np.float32))
+    y = torch.sin(X.sum(1)) + 0.1 * torch.from_numpy(rng.normal(size=300).astype(np.float32))
+    Xq = X[:50] + 0.3
+    p = init_params(0.8, 1.5, 0.05)
+    on = lambda q: type(q)(*(a.to(cuda) for a in q))  # noqa: E731
+    model_c = GPModel("se", p, X, y, gram_backend="pallas")
+    model_g = GPModel("se", on(p), X.to(cuda), y.to(cuda), gram_backend="pallas")
+    before = runtime.family("gram").launches
+    model_g.factors()
+    mid = runtime.family("gram").launches
+    got = model_g.predict(Xq)
+    torch.cuda.synchronize()
+    assert (mid - before, runtime.family("gram").launches - mid) == (1, 1)
+    for a, b in zip(got, model_c.predict(Xq)):
+        _close(a.cpu().numpy(), b.numpy())
+    _close(float(model_g.nlml()), float(model_c.nlml()))
+
+    Z = X[:15] + 0.1
+    sg_c = SGPR("se", p, Z, X, y, gram_backend="pallas")
+    sg_g = SGPR("se", on(p), Z.to(cuda), X.to(cuda), y.to(cuda), gram_backend="pallas")
+    before = runtime.family("gram").launches
+    e_g = elbo(sg_g.params, sg_g.Z, sg_g.X, sg_g.y, "se", "pallas")
+    torch.cuda.synchronize()
+    assert runtime.family("gram").launches == before + 2  # Kmm and Kmn
+    _close(float(e_g), float(elbo(p, Z, X, y, "se", "pallas")))
+    for a, b in zip(sg_g.predict(Xq), sg_c.predict(Xq)):
+        _close(a.cpu().numpy(), b.numpy())
+    for a, b in zip(sg_g.qu(), sg_c.qu()):
+        _close(a.cpu().numpy(), b.numpy())
+    # a batched fit through the kernel, forward and backward: 2 + 3 launches a step
+    Xb, yb = X.reshape(3, 100, 3), y.reshape(3, 100)
+    before = runtime.family("gram").launches
+    fit_g = train_sgpr(Xb.to(cuda), yb.to(cuda), 10, steps=5, seed=4, gram_backend="pallas")
+    torch.cuda.synchronize()
+    assert runtime.family("gram").launches == before + 5 * 5
+    fit_c = train_sgpr(Xb, yb, 10, steps=5, seed=4, gram_backend="pallas")
+    np.testing.assert_allclose(fit_g.Z.cpu().numpy(), fit_c.Z.numpy(), rtol=1e-4, atol=1e-4)

@@ -111,7 +111,7 @@ def test_trained_hyperparameters_differ_by_float32_rounding(setting):
     X0 = torch.as_tensor(parts[0][0], dtype=torch.float64)
     y0 = torch.as_tensor(parts[0][1], dtype=torch.float64)
     start = port_gp.GPParams(*(a.double() for a in port_gp.init_params()))
-    exact = np.array([float(a) for a in port_gp.train_gp(X0, y0, "se", start, STEPS)])
+    exact = np.array([float(a) for a in port_gp.train_gp(X0, y0, "se", start, STEPS).params])
     assert np.abs(port - exact).max() <= np.abs(want - exact).max()
     # the experts follow the hyperparameters: 2.7e-3 apart (scale 0.38)
     got_mus, _ = _port_experts(art, Xt)
