@@ -180,6 +180,26 @@ into a pass):
       printed as a finding); ``gram`` launches from zero exactly as the
       docstring of ``paper_phase`` counts them, no kernel in Figs. 2, 3 and
       the ablation.
+   k. the serving CLI (``serve_phase``): ``repro_torch.launch.serve_gp.
+      main`` in-process at the paper's §6 widths (``SERVE_ARGS``: m = 40,
+      R = 24, n = 2000, d = 21, 60 steps, 50 requests of 128, ``pallas``)
+      for center (saved, reloaded and served, 16 rows streamed every 20
+      requests), broadcast (KL) under ``drop:1,flip:0.01,straggle:3@0.05``
+      with a 50 ms budget, poe-rBCM and a broadcast ``--fleet`` of 16
+      tenants (cache 8, flushes of 4), then ``repro_torch.examples.
+      quickstart`` and ``distributed_gp_sarcos``.  Checks: exit code 0,
+      the contract ok with 0 cholesky / eigh; every warm request's
+      launches exactly ``SERVE_RUNS``' counts, the profiler's hand-written
+      kernels of one warm request the same, family by family, and one warm
+      predict under ``torch.cuda.set_sync_debug_mode("error")``; the served
+      answers against the same checkpoint served on the CPU; the ledgers
+      the accounting formulas and ``rows_demoted`` the CRC failures
+      recomputed from the flip masks, as integers; the fleet one
+      ``epilogue_fleet`` per fused flush, no stacked tensor reallocated,
+      and a four-tenant flush against each tenant served on the CPU; the
+      examples' SMSE finite and the quickstart's orderings.  Phase 3 holds
+      the kernels at these requests' shapes (gram 128 x 50 and 128 x 2000,
+      the epilogue and a four-tenant flush at K = 50).
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -438,29 +458,15 @@ STREAM_STEADY = 32  # repeated in-bucket updates of the last state, timed
 
 
 def _op_counts(fn):
-    """(aten ops dispatched, device kernels run) by one call of ``fn``: a
-    TorchDispatchMode count and the profiler's CUDA events (0 off the card)."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
+    """(aten ops dispatched, device kernels run, leading sentinel records
+    the profiler dropped) by one call of ``fn`` each: ``repro_torch.
+    analysis.op_walk``'s TorchDispatchMode count (without its
+    ``copy_to_host`` tally) and its ``kernel_trace`` (none off the card)."""
+    from repro_torch.analysis.op_walk import kernel_trace, record_ops
 
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += 1
-            return func(*args, **(kwargs or {}))
-
-    with Count():
-        fn()
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-    kernels = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
-    return Count.n, kernels
+    ops = record_ops(fn)
+    names, lost = kernel_trace(fn)
+    return sum(n for k, n in ops.items() if k != "copy_to_host"), len(names), lost
 
 
 def stream_phase(dev, arts, X_new, y_new, X_q, batch=128):
@@ -587,7 +593,7 @@ def stream_phase(dev, arts, X_new, y_new, X_q, batch=128):
             est.update(art, Xb, yb, machine=j)
             sync()
             steady.append((time.perf_counter() - t) * 1e3)
-        ops, kernels = _op_counts(lambda: est.update(art, Xb, yb, machine=j))
+        ops, kernels, lost = _op_counts(lambda: est.update(art, Xb, yb, machine=j))
         K = art.factors["L_M" if "L_M" in art.factors else "L"].shape[-1]
         print(f"[stream] {name}: {len(STREAM_BATCHES)} updates of {n} rows, cols "
               f"{int(arts[name].stream.cols)} -> {int(art.stream.cols)} (capacity "
@@ -597,7 +603,8 @@ def stream_phase(dev, arts, X_new, y_new, X_q, batch=128):
               f"the stream, in-bucket p50 {np.percentile(steady, 50):.3f} ms p99 "
               f"{np.percentile(steady, 99):.3f} ms over {STREAM_STEADY} (host clock, "
               f"synchronized); one in-bucket update: {ops} aten ops, {kernels} device "
-              f"kernels (factor side {K}); loaded == saved (bitwise), a further update "
+              f"kernels (the profiler dropped {lost} leading sentinel records) (factor side "
+              f"{K}); loaded == saved (bitwise), a further update "
               f"continues the stream; launches {path_launches[f'stream {name}']}", flush=True)
     return path_launches
 
@@ -1175,6 +1182,295 @@ def paper_phase(dev):
     return path_launches
 
 
+# phase k: the serving CLI (repro_torch.launch.serve_gp) in-process, at the
+# paper's §6 widths, each run checked: the contract, the kernel launches of
+# every warm request (the runtime's counts and the profiler's device
+# kernels), a warm predict under torch.cuda.set_sync_debug_mode("error"),
+# the ledgers against the accounting formulas
+SERVE_ARGS = ("--m", "40", "--bits", "24", "--n", "2000", "--d", "21", "--steps", "60",
+              "--queries", "50", "--batch", "128", "--gram-backend", "pallas")
+SERVE_CHAOS = "drop:1,flip:0.01,straggle:3@0.05"
+# tag: (flags beside SERVE_ARGS, kernel launches of each warm request)
+SERVE_RUNS = {
+    "center": (("--protocol", "center", "--stream-every", "20", "--stream-size", "16"),
+               {"gram": 1}),
+    "broadcast": (("--protocol", "broadcast", "--chaos", SERVE_CHAOS, "--timeout-ms", "50"),
+                  {"gram": 1, "epilogue": 1}),
+    "poe-rbcm": (("--protocol", "poe"), {"gram": 1}),
+    "fleet": (("--protocol", "broadcast", "--fleet", "--fleet-tenants", "16",
+               "--fleet-cache", "8", "--fleet-slots", "4"), None),
+}
+
+
+def _serve_data(args):
+    """The parts a serve_gp run fits, rebuilt as ``serve_gp.main`` makes
+    them (numpy rng 0, the estimator's seeded split) from its parsed flags."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.protocols.base import split_machines
+
+    rng = np.random.default_rng(0)
+    W = rng.normal(size=(args["d"], 2))
+    X = rng.normal(size=(args["n"], args["d"])).astype(np.float32)
+    y = (np.sin(X @ W[:, 0]) + 0.4 * (X @ W[:, 1])
+         + 0.05 * rng.normal(size=args["n"])).astype(np.float32)
+    return split_machines(X, y, args["m"], torch.Generator().manual_seed(0))
+
+
+def serve_phase(dev, base_args=SERVE_ARGS, examples=True):
+    """Phase k on ``dev``: ``repro_torch.launch.serve_gp.main`` driven
+    in-process for each of SERVE_RUNS (``base_args`` beside each run's
+    flags; the center run saves, reloads and serves the loaded copy and
+    streams 16 rows every 20 requests, broadcast runs under SERVE_CHAOS
+    with a 50 ms budget and every 7th request degraded, poe is rBCM, the
+    fleet serves 16 y-scaled tenants through an 8-artifact cache in
+    flushes of 4), then the two examples.  Checks per run: exit code 0
+    (a SystemExit is caught only to read its code), the contract ok with
+    0 cholesky and 0 eigh; on the card, every warm request's launches
+    exactly SERVE_RUNS' counts, one warm request traced by
+    ``torch.profiler`` (``op_walk.kernel_trace``) with the same
+    hand-written kernels family by family, and one warm predict under
+    ``torch.cuda.set_sync_debug_mode("error")``; the served answers (and
+    broadcast's under its degraded mask) against the same checkpoint
+    served on the CPU, within FAULT_OUT_TOL; the ledgers the
+    ``comm/accounting.py`` formulas on the transmitted (after the
+    streamed) lengths and ``rows_demoted`` the CRC failures recomputed
+    from the flip masks, as integers; the fleet's ``epilogue_fleet``
+    launches one per fused flush, no stacked tensor reallocated, and one
+    flush of four of its tenants (one degraded) against each served
+    alone on the CPU.  Returns
+    {path: launches} for the kernels line, each run read from zero."""
+    import numpy as np
+    import torch
+
+    from repro_torch import faults
+    from repro_torch.analysis.op_walk import KERNEL_SYMBOLS, hand_written_kernels, kernel_trace
+    from repro_torch.comm.accounting import (
+        integrity_bits_formula, payload_bits_formula, row_bits, wire_bits_formula,
+    )
+    from repro_torch.core import torch_scheme as TS
+    from repro_torch.core.fleet import FleetStack, scale_targets
+    from repro_torch.core.protocols.base import load_artifact
+    from repro_torch.examples import distributed_gp_sarcos, quickstart
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve_gp
+
+    cuda = dev.type == "cuda"
+    runtime.families()
+    path_launches, rows = {}, []
+
+    def flag(argv, name, cast=int):
+        return cast(argv[len(argv) - 1 - argv[::-1].index(name) + 1])
+
+    def drive(tag, argv):
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            res = serve_gp.main(argv)
+        except SystemExit as e:  # only to read the code: 0 is a pass
+            check(e.code in (0, None), f"serve {tag}: serve_gp exited with code {e.code}")
+            res = None
+        if cuda:
+            torch.cuda.synchronize()
+        path_launches[f"serve {tag}"] = runtime.launches()
+        check(res is not None, f"serve {tag}: serve_gp.main returned no result")
+        return res, time.perf_counter() - t0
+
+    def on_cpu(tag, est, art):
+        """``art`` saved and loaded onto the CPU."""
+        saved = str(ROOT / "build" / "chip_smoke_serve_ckpt" / tag)
+        shutil.rmtree(saved, ignore_errors=True)
+        est.save(art, saved)
+        out = load_artifact(saved, device="cpu")
+        shutil.rmtree(saved, ignore_errors=True)
+        return out
+
+    def against_cpu(tag, pairs):
+        """max |card - CPU| of mu and var over ``pairs`` ((mu, var, mu_c,
+        var_c) each) as fractions of max(1, max |CPU value|)."""
+        errs = [0.0, 0.0]
+        for got in pairs:
+            for i in (0, 1):
+                c = got[2 + i]
+                errs[i] = max(errs[i], float((got[i].cpu() - c).abs().max())
+                              / max(1.0, float(c.abs().max())))
+        check(all(np.isfinite(errs)) and max(errs) <= FAULT_OUT_TOL,
+              f"serve {tag}: the card's answers differ from the same checkpoint served "
+              f"on the CPU by mu {errs[0]:.3e}, var {errs[1]:.3e} of scale (limit "
+              f"{FAULT_OUT_TOL:g})")
+        return errs
+
+    for tag, (extra, per_request) in SERVE_RUNS.items():
+        argv = list(base_args) + list(extra) + ["--device", dev.type]
+        ckpt = ROOT / "build" / f"chip_smoke_serve_{tag}"
+        if tag == "center":
+            shutil.rmtree(ckpt, ignore_errors=True)
+            argv += ["--artifact-dir", str(ckpt)]
+        res, wall = drive(tag, argv)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        art, est = res["art"], res["est"]
+        a = {k: flag(argv, f"--{k}") for k in ("m", "n", "d", "bits", "batch")}
+        if tag == "fleet":
+            stats, launches = res["stats"], res["launches"]
+            want = stats["fused_dispatches"] if cuda else 0
+            check(res["reallocated"] == 0, "serve fleet: a stacked tensor was reallocated")
+            check(launches.get("epilogue_fleet", 0) == want and not launches.get("epilogue"),
+                  f"serve fleet: launches {launches} in {stats['flushes']} flushes "
+                  f"({stats['fused_dispatches']} fused), not one epilogue_fleet a fused flush")
+            check(stats["completed"] == max(flag(argv, "--queries"), 16),
+                  f"serve fleet: {stats['completed']} requests completed")
+            # one flush of four y-scaled tenants, the third degraded, on the
+            # card against each tenant served alone on the CPU
+            scales = (0.25, 0.7, 1.3, 1.75)
+            stack = FleetStack({i: scale_targets(art, c) for i, c in enumerate(scales)})
+            Xf = torch.randn(4, a["batch"], a["d"], generator=torch.Generator().manual_seed(11))
+            av = np.ones((4, a["m"]), np.float32)
+            av[2, 5 % a["m"]] = 0.0
+            before = runtime.launches()
+            mu_f, var_f = stack.predict(list(range(4)), Xf.to(dev), av)
+            if cuda:
+                torch.cuda.synchronize()
+            flush = {k: v - before.get(k, 0) for k, v in runtime.launches().items()
+                     if v != before.get(k, 0)}
+            check(flush == ({"gram": 4, "epilogue_fleet": 1} if cuda else {}),
+                  f"serve fleet: a four-tenant flush launched {flush}")
+            art_c = on_cpu(tag, est, art)
+            err = against_cpu(tag, [(mu_f[i], var_f[i], *scale_targets(art_c, c).predict(
+                Xf[i], available=av[i])) for i, c in enumerate(scales)])
+            c = stats["cache"]
+            print(f"[serve] fleet: 16 tenants, {stats['completed']} requests x {a['batch']} "
+                  f"points in {res['wall_s']:.3f} s -> {res['qps']:.0f} q/s; p50 "
+                  f"{stats['p50_ms']:.3f} ms p99 {stats['p99_ms']:.3f} ms from submit; hit "
+                  f"rate {c['hit_rate']:.3f} ({c['hits']}h/{c['misses']}m); flushes "
+                  f"{stats['flushes']} (fused {stats['fused_dispatches']}), launches "
+                  f"{launches}; stacks reallocated {res['reallocated']}; a four-tenant flush "
+                  f"{flush}, card vs CPU mu {err[0]:.3e} var {err[1]:.3e} of scale; fit "
+                  f"{res['fit_s']:.3f} s; run {wall:.1f} s", flush=True)
+            rows.append(("fleet", res["fit_s"], stats["p50_ms"], stats["p99_ms"]))
+        report = res.get("report")
+        if report is None:  # the fleet mode ends before serve_gp's own check
+            from repro_torch.analysis import check_contracts
+
+            report = check_contracts(art, raise_on_violation=False)
+        check(report.ok and report.op_counts["cholesky"] == 0 and report.op_counts["eigh"] == 0
+              and not report.collectives and not report.leaks,
+              f"serve {tag}: contract {report.contract} findings {report.findings}, "
+              f"op counts {report.op_counts}")
+        # the ledgers, as integers, against the formulas
+        parts = _serve_data(a)
+        plan = art.config.faults
+        L = [int(p[0].shape[0]) for p in parts]
+        if plan is not None:
+            L = [int(p[0].shape[0]) for p in faults.apply_to_parts(
+                [(np.asarray(X), np.asarray(y)) for X, y in parts], plan)[0]]
+        if art.protocol == "poe":
+            want_ledgers, want_demoted = (0, 0, 0), 0
+        else:
+            skip = 0 if art.protocol == "center" else None
+            W = TS.row_words(row_bits(a["bits"], a["d"], art.max_bits))
+            demoted = [0] * a["m"]
+            if plan is not None and plan.flip_rate > 0:
+                for j in range(a["m"]):
+                    if j != skip and L[j] > 0:
+                        e = faults.flip_mask((L[j], W), plan.flip_rate, plan.seed, j)
+                        demoted[j] = int((TS.crc_words(e)
+                                          != TS.crc_words(torch.zeros_like(e))).sum())
+            want_demoted = sum(demoted)
+            check(list(art.fit_lengths) == [L[j] - demoted[j] for j in range(a["m"])],
+                  f"serve {tag}: fit lengths {art.fit_lengths} are not the transmitted "
+                  f"{L} less the demotions {demoted}")
+            L = list(art.lengths) if plan is None else L  # a stream grows the counts
+            rates = art.wire.rates.cpu().numpy()
+            want_ledgers = (wire_bits_formula(rates, L, a["d"], skip=skip),
+                            payload_bits_formula(L, a["d"], a["bits"], art.max_bits, skip=skip),
+                            integrity_bits_formula(L, skip=skip))
+        got = (art.wire_bits, art.payload_bits, art.integrity_bits)
+        check(got == want_ledgers and art.rows_demoted == want_demoted,
+              f"serve {tag}: ledgers {got} / {art.rows_demoted} demoted, the formulas say "
+              f"{want_ledgers} / {want_demoted}")
+        if tag == "fleet":
+            continue
+        # launches of every warm request, the profiler's kernels, syncs
+        want = per_request if cuda else {}
+        bad = [r for r in res["request_launches"] if r != want]
+        check(not bad and len(res["request_launches"]) == flag(argv, "--queries") - 1,
+              f"serve {tag}: warm requests launched {bad[:3]}, expected {want} each")
+        Xq = torch.randn(a["batch"], a["d"], generator=torch.Generator().manual_seed(7))
+        Xq_d = Xq.to(dev)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                mu, var = est.predict(art, Xq_d)
+            except RuntimeError as e:
+                import traceback
+
+                fail(f"serve {tag}: a warm predict synchronizes with the host: {e}\n"
+                     + "".join(traceback.format_exc(limit=-6)))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            names, lost = kernel_trace(est.predict, art, Xq_d)
+            hw = hand_written_kernels(names)
+            fams = {k: sum(hw[s] for s in KERNEL_SYMBOLS[k]) for k in want}
+            check(fams == want and sum(hw.values()) == sum(want.values()),
+                  f"serve {tag}: the profiler saw hand-written kernels {dict(hw)} in a warm "
+                  f"request, expected {want}; its {len(names)} device kernels include "
+                  f"{sorted({n[:90] for n in names})[:12]}")
+            traced = f"{dict(hw)} of {len(names)} device kernels ({lost} of the leading " \
+                     "sentinel records dropped)"
+        else:
+            mu, var = est.predict(art, Xq)
+            traced = "none (no card)"
+        # the same checkpoint served on the CPU, under broadcast's degraded
+        # mask too (every 7th request of its run)
+        art_c = on_cpu(tag, est, art)
+        pairs = [(mu, var, *art_c.predict(Xq))]
+        if res["health"] is not None:
+            av = np.asarray([0.0 if j in res["health"].machines_lost else 1.0
+                             for j in range(a["m"])], np.float32)
+            pairs.append((*est.predict(art, Xq_d, available=av),
+                          *art_c.predict(Xq, available=av)))
+        err = against_cpu(tag, pairs)
+        check(all(bool((p[1] > 0).all()) for p in pairs),
+              f"serve {tag}: a served variance is not positive")
+        h = res["health"]
+        if tag == "broadcast":
+            check(h is not None and h.status == "degraded" and 1 in h.machines_lost
+                  and h.rows_demoted == want_demoted,
+                  f"serve broadcast: health {h}")
+        lat = res["lat_ms"]
+        print(f"[serve] {tag}: fit {res['fit_s']:.3f} s; warm p50 {res['p50_ms']:.3f} ms p99 "
+              f"{res['p99_ms']:.3f} ms ({len(lat)} requests of {a['batch']}, host clock, "
+              f"synchronized; {res['n_over']} over the budget); launches per warm request "
+              f"{want}, the profiler's {traced}; card vs CPU mu {err[0]:.3e} var "
+              f"{err[1]:.3e} of scale; growths "
+              f"{res['growths']} in {res['n_updates']} updates; ledgers {got}, "
+              f"{art.rows_demoted} demoted; contract {report.contract} ok; run {wall:.1f} s",
+              flush=True)
+        rows.append((tag, res["fit_s"], res["p50_ms"], res["p99_ms"]))
+    if examples:
+        for name, mod in (("quickstart", quickstart), ("sarcos", distributed_gp_sarcos)):
+            runtime.reset_launches()
+            t0 = time.perf_counter()
+            out = mod.main(["--device", dev.type])
+            path_launches[f"example {name}"] = runtime.launches()
+            smse = out["smse"]
+            check(all(np.isfinite(v) and 0 <= v < 1.5 for v in smse.values()),
+                  f"example {name}: SMSE {smse}")
+            if name == "quickstart":
+                dist = out["distortion"]
+                check(smse["loaded"] == smse["R64"] and dist["optimum"] <= dist["per_symbol"]
+                      < dist["dim_reduction"] < dist["zero_rate"],
+                      f"example quickstart: the loaded serve or the distortions' order "
+                      f"broke: {out}")
+            print(f"[serve] example {name}: {time.perf_counter() - t0:.1f} s; SMSE "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in smse.items()), flush=True)
+    print("[serve] path  fit s  warm p50 / p99 ms:  " + "  ".join(
+        f"{t} {f:.3f} {p:.3f}/{q:.3f}" for t, f, p, q in rows), flush=True)
+    return path_launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
@@ -1426,6 +1722,9 @@ def main():
           "gram: the card's residency differs from gram.TILES")
     main_gram = gram_case("serve: X* (128x21) . Xc (25x21)", 128, 25, 21, 200)
     gram_case("fit: Xc (25x21) . Xc (25x21)", 25, 25, 21, 200)
+    # the serving CLI's requests (phase 4k: n = 2000 over 40 machines)
+    gram_case("serve_gp center: X* (128x21) . Xc (50x21)", 128, 50, 21, 50, backward=False)
+    gram_case("serve_gp broadcast, poe: X* . 40 x 50 rows", 128, 2000, 21, 50, backward=False)
     gram_case("center direct fit: Xc (25x21) . X_recon (1000x21)", 25, 1000, 21, 50,
               backward=False, same_bits=True)
     gram_case("larger: 4449 queries . 40000 rows, d=21", 4449, 40000, 21, 3, same_bits=True)
@@ -1523,6 +1822,9 @@ def main():
                   50, floored=(0, 7, 127), lost=(3, 17, 39))
     epilogue_case("ragged + w zeros + floors: m=5 t=37 K=19", 5, 37, 19,
                   EPILOGUE_FUSES, 50, floored=(0, 36), lost=(1,))
+    epilogue_case("serve_gp: m=40 t=128 K=50", 40, 128, 50, ("kl", "rbcm"), 50)
+    epilogue_case("serve_gp degraded: m=40 t=128 K=50, lost 1", 40, 128, 50, ("kl",), 50,
+                  lost=(1,))
     # the variants' and tiles' edges: the small variant's largest K and one
     # past it, a point tile of each path whole and one point past it
     for tag, m_, t_, K_, kind in (
@@ -1596,6 +1898,7 @@ def main():
     fleet_case("ragged + w zeros + floors: T=5 m=5 t=37 K=19", 5, 5, 37, 19, EPILOGUE_FUSES,
                50, floored=(0, 36), lost=(1,))
     fleet_case("serve-sized: T=8 m=40 t=128 K=25", 8, 40, 128, 25, ("kl", "rbcm"), 50)
+    fleet_case("serve_gp flush: T=4 m=40 t=128 K=50", 4, 40, 128, 50, ("kl",), 50)
 
     # the quantizer kernels: bitwise against their plain versions
     def encode_bound(x, edges):
@@ -2415,6 +2718,16 @@ def main():
         check(path_launches[f"paper {tag}"]["gram"] > 0,
               f"paper {tag}: the gram kernel never launched")
     print(f"[paper] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # k. the serving CLI serve_gp at the paper's §6 widths, and the examples
+    t0 = time.perf_counter()
+    print(f"[serve] {smi}", flush=True)
+    path_launches.update(serve_phase(dev))
+    for tag, (_, per_request) in SERVE_RUNS.items():
+        kernels = ("epilogue_fleet",) if per_request is None else tuple(per_request)
+        check(all(path_launches[f"serve {tag}"][k] > 0 for k in kernels),
+              f"serve {tag}: a kernel of the path never launched")
+    print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"

@@ -211,7 +211,7 @@ def _fleet_fused_operands(stack, idx, Xq, avail, proj):
     of ``stack``, queries ``Xq`` (S, t, d)), built in one batched pass that
     mirrors the sanitize prologue of ``base._predict_impl`` term for term.
     ``proj`` is the stack's resident projector buffer (slots, m, K, K), so
-    the per-query ``cholesky_solve`` of the single-tenant serve is skipped.
+    the per-query solve against ``L_M`` of the single-tenant serve is skipped.
     Returns (finite, noise, G, Ainv, P, walpha, gss, prior, w), the last
     seven contiguous and in the kernel's order."""
     rows = torch.as_tensor(idx, dtype=torch.long, device=Xq.device)

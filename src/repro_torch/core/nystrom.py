@@ -54,9 +54,14 @@ def _tri_solve(L, B):
 
 
 def _cho_solve(L, B):
-    """(L L^T)^{-1} B; B (..., K) or (..., K, t)."""
+    """(L L^T)^{-1} B; B (..., K) or (..., K, t) — by two triangular
+    solves, the same bits as ``torch.cholesky_solve`` on the CPU.  On the
+    card, ``cholesky_solve`` over a batch of factors goes through MAGMA and
+    waits on the host every call; the triangular solves stay on the
+    stream, so a request that uses this never synchronizes."""
     Bm, vec = _col(B, L)
-    out = torch.cholesky_solve(Bm, L)
+    out = torch.linalg.solve_triangular(
+        L.mT, torch.linalg.solve_triangular(L, Bm, upper=False), upper=True)
     return out[..., 0] if vec else out
 
 

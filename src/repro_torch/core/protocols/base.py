@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import operator
 import warnings
 
@@ -55,6 +56,7 @@ __all__ = [
     "artifact_from_arrays",
     "resolve_device",
     "params_on",
+    "predict_op_counts",
 ]
 
 
@@ -234,6 +236,23 @@ class FittedProtocol:
     def device(self) -> torch.device:
         return self.y.device
 
+    @functools.cached_property
+    def fit_availability(self):
+        """The mask :func:`predict` derives when given none: (m,) float32
+        on the artifact's device, 0 for each machine whose fit-time shard
+        was empty, or ``None`` when every machine served rows.
+        ``fit_lengths`` never change, so it is built once per artifact,
+        on the device from the lost indices (a request copies nothing
+        from the host)."""
+        if all(n > 0 for n in self.fit_lengths):
+            return None
+        idx = torch.arange(len(self.fit_lengths), device=self.device)
+        alive = torch.ones(len(self.fit_lengths), dtype=torch.bool, device=self.device)
+        for j, n in enumerate(self.fit_lengths):
+            if n == 0:
+                alive &= idx != j
+        return alive.to(torch.float32)
+
     @property
     def lengths(self) -> tuple:
         return tuple(int(v) for v in self.stream.counts.tolist())
@@ -334,16 +353,16 @@ def _availability(art: FittedProtocol, available):
     empty are marked down."""
     m = len(art.fit_lengths)
     if available is None:
-        if all(n > 0 for n in art.fit_lengths):
-            return None
-        av = np.asarray([1.0 if n > 0 else 0.0 for n in art.fit_lengths], np.float32)
-        return torch.from_numpy(av).to(art.device)
-    av = _numpy(available).astype(np.float32).reshape(-1)
+        return art.fit_availability
+    if isinstance(available, torch.Tensor):
+        av = available.to(device=art.device, dtype=torch.float32).reshape(-1)
+    else:
+        av = torch.from_numpy(np.asarray(available, np.float32).reshape(-1)).to(art.device)
     if av.shape[0] != m:
         raise ValueError(
             f"available mask has {av.shape[0]} entries for m={m} machines"
         )
-    return torch.from_numpy((av > 0).astype(np.float32)).to(art.device)
+    return (av > 0).to(torch.float32)
 
 
 def predict(art: FittedProtocol, X_star, available=None):
@@ -697,3 +716,17 @@ def load_artifact(directory: str, step: int | None = None, device=None) -> Fitte
     device = resolve_device(device)
     meta, arrays = load_artifact_arrays(directory, step)
     return artifact_from_arrays(meta, arrays, device)
+
+
+def predict_op_counts(art: FittedProtocol, X_star, ops=("cholesky", "eigh")) -> dict:
+    """Count factorizations in one :func:`predict` of this artifact — the
+    structural serve-path check: a warm predict performs ZERO ``cholesky``
+    (no refactorization) and ZERO ``eigh`` (no scheme refit).  ``ops`` are
+    the reference's primitive names; each counts the aten ops that perform
+    it (``repro_torch.analysis.op_walk.FACTORIZATION_OPS``).  A thin wrapper
+    over :func:`repro_torch.analysis.predict_ops`, side-effect-neutral as
+    it is."""
+    from ...analysis.contracts import predict_ops
+    from ...analysis.op_walk import primitive_counts
+
+    return dict(primitive_counts(predict_ops(art, X_star), names=ops))

@@ -54,8 +54,8 @@ from ..gp import (
 )
 from ..linalg_safe import DEFAULT_JITTER
 from ..nystrom import (
-    _tri_solve, chol_update_rank, nystrom_apply, nystrom_apply_cached, nystrom_complete,
-    nystrom_factors, nystrom_kinv, nystrom_posterior, nystrom_serve_cache,
+    _cho_solve, _tri_solve, chol_update_rank, nystrom_apply, nystrom_apply_cached,
+    nystrom_complete, nystrom_factors, nystrom_kinv, nystrom_posterior, nystrom_serve_cache,
 )
 from ..registry import FUSIONS, SCHEMES, ProtocolSpec, register_protocol
 from ..schemes import PerSymbolScheme
@@ -407,7 +407,7 @@ def _epilogue_projector(art, noise):
     (:mod:`repro_torch.core.fleet`) builds it once per admitted tenant, on
     a stacked artifact with ``noise`` shaped to broadcast (slots, 1, 1, 1)."""
     U = art.factors["U"]
-    return (U - U @ torch.cholesky_solve(U, art.factors["L_M"])) / (noise + DEFAULT_JITTER)
+    return (U - U @ _cho_solve(art.factors["L_M"], U)) / (noise + DEFAULT_JITTER)
 
 
 def _fused_epilogue_operands(art, X_star, sq_star, g_ss, noise, avail):
@@ -482,3 +482,35 @@ def _update_broadcast(art: FittedProtocol, X_new, y_new, j: int, pre):
 register_protocol(ProtocolSpec(name="broadcast", fit=_fit_broadcast,
                                predict=_predict_broadcast, update=_update_broadcast,
                                fit_host=fit_broadcast_host))
+
+
+# --------------------------------------------------------------------------
+# the program contract (repro_torch.analysis.check_contracts enforces it)
+# --------------------------------------------------------------------------
+from ...analysis.contracts import (  # noqa: E402
+    CollectiveBudget,
+    Contract,
+    LedgerAccounting,
+    NoHostCallbacks,
+    NoShardingLeak,
+    forbid_primitives,
+    register_contract,
+)
+
+# §5.2 batched serving: the m machines are a leading batch axis of one
+# call — nothing may factorize, synchronize with the host or sit on
+# another device.
+register_contract("broadcast", "predict", Contract(
+    name="broadcast-serve",
+    rules=(
+        forbid_primitives(),
+        NoHostCallbacks(),
+        CollectiveBudget(max_count=0),
+        NoShardingLeak(max_devices=1),
+        LedgerAccounting(),
+    ),
+))
+register_contract("broadcast", "update", Contract(
+    name="broadcast-update",
+    rules=(NoShardingLeak(max_devices=1), LedgerAccounting()),
+))

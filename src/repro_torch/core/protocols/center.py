@@ -472,3 +472,36 @@ def _update_center(art: FittedProtocol, X_new, y_new, j: int, pre):
 
 register_protocol(ProtocolSpec(name="center", fit=_fit_center, predict=_predict_center,
                                update=_update_center, fit_host=fit_center_host))
+
+
+# --------------------------------------------------------------------------
+# the program contract (repro_torch.analysis.check_contracts enforces it)
+# --------------------------------------------------------------------------
+from ...analysis.contracts import (  # noqa: E402
+    CollectiveBudget,
+    Contract,
+    LedgerAccounting,
+    NoHostCallbacks,
+    NoShardingLeak,
+    forbid_primitives,
+    register_contract,
+)
+
+# §5.1 serving: the center holds ONE factor set, so a warm predict is
+# triangular algebra against it — no factorization, no host round trip, no
+# collective (machines were a fit-time construct), and every tensor of the
+# artifact on its one device.
+register_contract("center", "predict", Contract(
+    name="center-serve",
+    rules=(
+        forbid_primitives(),
+        NoHostCallbacks(),
+        CollectiveBudget(max_count=0),
+        NoShardingLeak(max_devices=1),
+        LedgerAccounting(),
+    ),
+))
+register_contract("center", "update", Contract(
+    name="center-update",
+    rules=(NoShardingLeak(max_devices=1), LedgerAccounting()),
+))

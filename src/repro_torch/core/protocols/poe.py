@@ -180,3 +180,34 @@ def _update_poe(art: FittedProtocol, X_new, y_new, j: int, pre=None):
 
 register_protocol(ProtocolSpec(name="poe", fit=_fit_poe, predict=_predict_poe,
                                update=_update_poe, fit_host=fit_poe_host))
+
+
+# --------------------------------------------------------------------------
+# the program contract (repro_torch.analysis.check_contracts enforces it)
+# --------------------------------------------------------------------------
+from ...analysis.contracts import (  # noqa: E402
+    CollectiveBudget,
+    Contract,
+    LedgerAccounting,
+    NoHostCallbacks,
+    NoShardingLeak,
+    forbid_primitives,
+    register_contract,
+)
+
+# the zero-rate baseline: the experts are a leading batch axis; the wire
+# ledger is 0 and the serve must be as silent as the wire.
+register_contract("poe", "predict", Contract(
+    name="poe-serve",
+    rules=(
+        forbid_primitives(),
+        NoHostCallbacks(),
+        CollectiveBudget(max_count=0),
+        NoShardingLeak(max_devices=1),
+        LedgerAccounting(),
+    ),
+))
+register_contract("poe", "update", Contract(
+    name="poe-update",
+    rules=(NoShardingLeak(max_devices=1), LedgerAccounting()),
+))

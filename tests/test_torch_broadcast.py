@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import DGPConfig as RefConfig  # noqa: E402
@@ -38,6 +39,7 @@ from repro.core import DistributedGP as RefGP  # noqa: E402
 from repro.core.gp import GPParams as RefParams  # noqa: E402
 from repro_torch.core import DGPConfig, DistributedGP, GPParams  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
+
 
 M, D, N_PER = 5, 5, 14  # 70 training points over 5 machines
 START = (0.2, -0.3, -1.5)  # log_a, log_b, log_noise: the shared start

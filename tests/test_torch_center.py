@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -37,6 +38,7 @@ from repro_torch.core import DGPConfig, DistributedGP, GPParams  # noqa: E402
 from repro_torch.core.gp import nlml_from_gram  # noqa: E402
 from repro_torch.core.protocols.center import CenterGP  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
+
 
 M, D, N_PER = 6, 6, 16  # 96 training points over 6 machines
 START = (0.2, -0.3, -1.5)  # log_a, log_b, log_noise: the shared start

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.decode_attn.ops import decode_attn as ref_decode_attn  # noqa: E402

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.epilogue.ops import epilogue_moments_fleet as ref_fleet  # noqa: E402
@@ -35,6 +36,7 @@ from repro_torch.kernels.epilogue.ref import (  # noqa: E402
     EPILOGUE_FUSES, epilogue_error_bound, epilogue_fleet_error_bound,
     epilogue_moments_fleet_plain, epilogue_moments_plain,
 )
+
 
 T, M, T_PTS, K = 3, 5, 37, 19
 FLOORED = (0, 5, 36)  # test points whose gss is 0: s2 floors at 1e-12

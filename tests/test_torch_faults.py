@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -53,6 +54,7 @@ from repro_torch.core import DGPConfig, DistributedGP, GPParams  # noqa: E402
 from repro_torch.core import torch_scheme as TS  # noqa: E402
 from repro_torch.core.protocols import wire  # noqa: E402
 from repro_torch.core.protocols.base import load_artifact, pad_parts  # noqa: E402
+
 
 M, D, N_PER, BITS = 8, 8, 25, 24  # 200 points over 8 machines; R = 24, d = 8
 START = (0.2, -0.3, -1.5)

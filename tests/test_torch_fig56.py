@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 
 from repro.core import broadcast_gp, poe_baseline, single_center_gp  # noqa: E402
 from repro.core import train_gp as ref_train_gp  # noqa: E402

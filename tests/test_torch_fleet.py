@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 
 from repro.core import DGPConfig as RefConfig  # noqa: E402
@@ -34,6 +35,8 @@ from repro.core import DistributedGP as RefGP  # noqa: E402
 from repro.core import fleet as rfleet  # noqa: E402
 from repro.core.protocols import predict as ref_predict  # noqa: E402
 from repro.launch import fleet as rlaunch  # noqa: E402
+from repro_torch.core import DGPConfig as PortConfig  # noqa: E402
+from repro_torch.core import DistributedGP as PortGP  # noqa: E402
 from repro_torch.core import fleet  # noqa: E402
 from repro_torch.core.fleet import (  # noqa: E402
     ArtifactCache, ArtifactStore, FleetStack, artifact_nbytes, bucket_key,
@@ -44,6 +47,7 @@ from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.launch.fleet import (  # noqa: E402
     FleetServer, MicroBatcher, build_fleet, main, serve_loop, zipf_tenants,
 )
+
 
 M, N, D, STEPS, BITS = 4, 96, 4, 2, 8
 T_Q = 8  # query points per tenant request
@@ -217,6 +221,76 @@ def test_degraded_mask_tenant_is_isolated(bases):
     mu_1, var_1 = predict(tenants[1], Xq[1], available=degraded[1])
     np.testing.assert_allclose(mu_d[1].numpy(), mu_1.numpy(), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(var_d[1].numpy(), var_1.numpy(), rtol=2e-4, atol=2e-4)
+
+
+# --------------------------------------------------------------------------
+# the gram modes no other test stacks: center direct / nystrom_fitc and
+# broadcast direct (each served through the per-tenant loop)
+# --------------------------------------------------------------------------
+
+MODE_CONFIGS = {
+    "center_direct": dict(bits_per_sample=BITS, gram_mode="direct"),
+    "center_fitc": dict(bits_per_sample=BITS, gram_mode="nystrom_fitc"),
+    "broadcast_direct": dict(protocol="broadcast", fusion="kl", gram_mode="direct",
+                             bits_per_sample=BITS),
+}
+
+
+@pytest.fixture(scope="module")
+def mode_bases(tmp_path_factory):
+    """{kind: (reference artifact, port artifact)}: fitted by the port and
+    handed to the reference through the two packages' stores (cross-loaded,
+    as ``bases`` is the other way round; a reference fit per mode would cost
+    seconds of JAX compilation each)."""
+    root = tmp_path_factory.mktemp("port_store")
+    rstore, pstore = rfleet.ArtifactStore(str(root)), ArtifactStore(str(root), device="cpu")
+    out = {}
+    for i, (kind, cfg) in enumerate(MODE_CONFIGS.items()):
+        art = PortGP(PortConfig(steps=STEPS, **cfg), device="cpu").fit(parts=_parts(i))
+        pstore.save(kind, art)
+        out[kind] = (rstore.load(kind), pstore.load(kind))
+        assert out[kind][1].gram_mode == cfg["gram_mode"]
+    return out
+
+
+@pytest.mark.parametrize("kind", sorted(MODE_CONFIGS))
+def test_gram_mode_stacked_predict_matches_serial(kind, mode_bases):
+    tenants = _tenants(mode_bases[kind][1], 5)
+    tids = [3, 0, 4, 1, 3]
+    Xq = _queries(len(tids))
+    stack = FleetStack(tenants, slots=8)
+    assert not stack.fused
+    mu_s, var_s = stack.predict(tids, Xq)
+    for s, tid in enumerate(tids):
+        mu_1, var_1 = predict(tenants[tid], Xq[s])
+        np.testing.assert_allclose(mu_s[s].numpy(), mu_1.numpy(), rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(var_s[s].numpy(), var_1.numpy(), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("kind", sorted(MODE_CONFIGS))
+def test_gram_mode_nan_query_tenant_is_isolated(kind, mode_bases):
+    stack = FleetStack(_tenants(mode_bases[kind][1], 3), slots=4)
+    Xq = _queries(3)
+    mu_ref, var_ref = stack.predict([0, 1, 2], Xq)
+    hostile = Xq.copy()
+    hostile[1] = np.nan
+    mu_h, var_h = stack.predict([0, 1, 2], hostile)
+    for s in (0, 2):
+        assert torch.equal(mu_h[s], mu_ref[s]) and torch.equal(var_h[s], var_ref[s])
+    assert bool(torch.isfinite(mu_h[1]).all()) and bool(torch.isfinite(var_h[1]).all())
+    assert bool((mu_h[1] == 0).all())
+
+
+@pytest.mark.parametrize("kind", sorted(MODE_CONFIGS))
+def test_gram_mode_fleet_predict_matches_reference(kind, mode_bases):
+    ref, art = mode_bases[kind]
+    tids = [3, 0, 4, 1, 3]
+    Xq = _queries(len(tids))
+    mu, var = FleetStack(_tenants(art, 5), slots=8).predict(tids, Xq)
+    rmu, rvar = rfleet.FleetStack(_tenants(ref, 5, scale=rfleet.scale_targets),
+                                  slots=8).predict(tids, Xq)
+    _close(mu.numpy(), rmu, 1e-5)
+    _close(var.numpy(), rvar, 1e-5)
 
 
 # --------------------------------------------------------------------------

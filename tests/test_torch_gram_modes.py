@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -49,6 +50,7 @@ from repro_torch.core.gp import (  # noqa: E402
 from repro_torch.core.nystrom import nystrom_complete, nystrom_cross  # noqa: E402
 from repro_torch.core.protocols.center import CenterGP  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
+
 
 M, D, N_PER = 5, 5, 14  # 70 training points over 5 machines
 START = (0.2, -0.3, -1.5)  # log_a, log_b, log_noise: the shared start

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -61,6 +62,7 @@ from repro_torch.core.protocols.broadcast import HostBroadcastGP  # noqa: E402
 from repro_torch.core.protocols.center import CenterGP, quantize_to_center  # noqa: E402
 from repro_torch.core.protocols.poe import HostPoEGP  # noqa: E402
 from repro_torch.core.schemes import PerSymbolScheme  # noqa: E402
+
 
 M, D, N_PER, BITS, STEPS = 4, 8, 24, 24, 10
 START = (0.2, -0.3, -1.5)

@@ -32,6 +32,9 @@ def test_no_jax_or_repro_import_in_the_package():
     assert len(files) > 20
     assert PKG / "launch" / "fleet.py" in files and PKG / "core" / "fleet.py" in files
     assert PKG / "faults.py" in files and PKG / "core" / "rate_distortion.py" in files
+    assert PKG / "launch" / "serve_gp.py" in files and PKG / "core" / "distributed_gp.py" in files
+    assert {PKG / "analysis" / f for f in ("contracts.py", "op_walk.py", "lint.py")} <= set(files)
+    assert PKG / "examples" / "quickstart.py" in files
     bad = [
         f"{f.relative_to(PKG)}: {name}"
         for f in files for name in _imports(f)
@@ -54,6 +57,9 @@ from repro_torch.core import DGPConfig, DistributedGP
 from repro_torch.core.fleet import FleetStack
 from repro_torch.faults import corrupt_words, drop_machine
 import repro_torch.launch.fleet
+import repro_torch.launch.serve_gp, repro_torch.core.distributed_gp
+import repro_torch.examples.quickstart, repro_torch.examples.distributed_gp_sarcos
+from repro_torch.analysis import check_contracts, lint
 rng = np.random.default_rng(0)
 X = rng.normal(size=(48, 4)).astype(np.float32)
 y = X[:, 0].copy()
@@ -63,6 +69,7 @@ for protocol in ("center", "broadcast", "poe"):
     art = est.fit(X, y, m=4)
     mu, var = est.predict(art, X[:5])
     assert mu.shape == (5,) and bool((var > 0).all())
+    assert check_contracts(art, X[:5]).ok
     mu, var = FleetStack({0: art, 1: art}).predict([1, 0], np.stack([X[:5], X[5:10]]))
     assert mu.shape == (2, 5) and bool((var > 0).all())
     plan = drop_machine(2) | corrupt_words(0.01, seed=1)  # poe: the flips are a no-op

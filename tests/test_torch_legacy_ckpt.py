@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -37,6 +38,7 @@ from repro.core import jax_scheme  # noqa: E402
 from repro.core.gp import GPParams as RefParams  # noqa: E402
 from repro_torch.checkpoint import array_checksum  # noqa: E402
 from repro_torch.core import DGPConfig, DistributedGP  # noqa: E402
+
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "legacy_artifact")
 STEP = "00000000"

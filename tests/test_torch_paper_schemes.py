@@ -28,9 +28,9 @@ What is held, and within what:
 """
 import numpy as np
 import pytest
-from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -51,19 +51,6 @@ from repro_torch.launch import ablation_bits, fig2_distortion, fig3_pca  # noqa:
 
 TOL = 1e-5
 TOL_ROWS = 2e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One CPU thread for torch and the BLAS while this file runs: the
-    suite runs files in parallel worker processes, and a thread pool per
-    worker on the same cores slows these small-matrix loops many times
-    over (the previous settings come back after the file)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
 
 
 def _cov(rng, d, scale=1.0):

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import gp as ref_gp  # noqa: E402
@@ -49,6 +50,7 @@ from repro_torch.core import gp as port_gp  # noqa: E402
 from repro_torch.core.protocols.poe import _predict_poe_experts as port_experts  # noqa: E402
 from repro_torch.data.synthetic import regression_dataset  # noqa: E402
 from repro_torch.launch import fig56_regression as fig56  # noqa: E402
+
 
 M, STEPS, N_TRAIN, N_TEST = 5, 20, 200, 200
 SAME_TOL = 1e-5  # of max(1, scale), at the same hyperparameters

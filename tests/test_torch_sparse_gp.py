@@ -33,9 +33,9 @@ import dataclasses
 
 import numpy as np
 import pytest
-from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -55,19 +55,6 @@ from repro_torch.launch import fig4_gp1d, fig7_sparse  # noqa: E402
 
 TOL, TOL_TRAIN, TOL_LINEAR = 1e-5, 1e-4, 3e-4
 START = (1.0, 2.0, 0.1)  # a, l^2, noise of tests/test_sparse_gp.py
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One CPU thread for torch and the BLAS while this file runs: the
-    suite runs files in parallel worker processes, and a thread pool per
-    worker on the same cores slows these small-matrix loops many times
-    over (the previous settings come back after the file)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
 
 
 def _problem(seed=0, n=200, d=3):

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -57,6 +58,7 @@ from repro_torch.core.protocols.base import (  # noqa: E402
     artifact_arrays, load_artifact, predict, update, update_growth_count,
 )
 from repro_torch.core.protocols.wire import _per_symbol_reencode  # noqa: E402
+
 
 M, D, N_PER, BITS = 4, 8, 24, 24  # 96 points over 4 machines; R = 24, d = 8
 START = (0.2, -0.3, -1.5)

@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -40,6 +41,7 @@ from repro_torch.comm.accounting import side_info_bits  # noqa: E402
 from repro_torch.core import DGPConfig, DistributedGP, GPParams  # noqa: E402
 from repro_torch.core import rate_distortion as rd  # noqa: E402
 from repro_torch.core.protocols.base import load_artifact  # noqa: E402
+
 
 M, D, N_PER, BITS = 8, 8, 25, 24
 START = (0.2, -0.3, -1.5)
