@@ -200,6 +200,20 @@ into a pass):
       examples' SMSE finite and the quickstart's orderings.  Phase 3 holds
       the kernels at these requests' shapes (gram 128 x 50 and 128 x 2000,
       the epilogue and a four-tenant flush at K = 50).
+   l. ``impl="mesh"`` (``mesh_phase``): 40 spawned processes, one per
+      machine, each on the card (gloo between them), fit broadcast (KL),
+      poe-rBCM and center at the Fig. 6 setting (``xla``: the mesh runs no
+      hand-written kernel, as the reference's runs no Pallas one), serve
+      the 35 requests, save, and stream one 16-row batch; each held
+      against a batched ``xla`` fit on the card on the same parts:
+      ledgers equal and the formulas, mu and var within MESH_OUT_TOL of
+      scale, the same bits on every rank, one ``c10d.allreduce_`` and no
+      cholesky / eigh a warm broadcast / poe request (center: none), the
+      update's increments the formulas', the checkpoint reloaded
+      single-process within 1e-4, no kernel launched; then ``serve_gp
+      --mesh`` at ``--m 4 --bits 24 --n 400 --steps 10 --queries 8``.
+      Prints the ranks' start-up seconds, their contexts' memory, fit
+      seconds and request p50 / p99 (``[mesh]`` lines).
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1471,6 +1485,249 @@ def serve_phase(dev, base_args=SERVE_ARGS, examples=True):
     return path_launches
 
 
+# ---------------------------------------------------------------------------
+# phase l: impl="mesh" — one process per machine, all on the one card
+# ---------------------------------------------------------------------------
+MESH_M = 40  # machines = ranks (the Fig. 6 setting)
+MESH_RUNS = {  # DGPConfig fields of each path; the mesh assembles with "xla"
+    "broadcast": dict(protocol="broadcast", fusion="kl", bits_per_sample=24),
+    "poe-rbcm": dict(protocol="poe", fusion="rbcm", bits_per_sample=0),
+    "center": dict(protocol="center", bits_per_sample=24),
+}
+MESH_UPDATE_MACHINE = 1  # the 16-row batch arrives here: a transmitter in every protocol
+MESH_COLLECTIVES = {"broadcast": {"c10d.allreduce_": 1}, "poe-rbcm": {"c10d.allreduce_": 1},
+                    "center": {}}  # per warm request
+# a checkpoint reloaded single-process against the mesh's answers, of the
+# output's scale.  The reload fuses the stacked experts (mean of s2 + (mu -
+# mu_i)^2) where the mesh sums moment rows (s2 = S1 / m - mu^2, which
+# cancels), so var parts most.  Read on the H100 at the Fig. 6 setting
+# (PERF.md §6, PR 26): mu broadcast 3.0e-7, poe 4.7e-7, center 0 of scale
+# (1.4e-6 and 2.6e-6 absolute); var broadcast 3.2e-5 of scale (1.4e-4
+# absolute), poe 3.7e-8, center 0.  The var limit is about ten times its
+# largest reading, the mu limit the same as a share of the var's
+MESH_RELOAD_MU_TOL = 3e-5
+MESH_RELOAD_VAR_TOL = 3e-4
+# mesh against the batched fit on the card, of the output's scale: each rank
+# fits its scheme alone (cuSOLVER's one-matrix eigensolver) where the batched
+# fit solves the 40 machines' eigenproblems as one batch; the transforms round
+# apart (the reconstructions up to 1.3e-4 apart, no symbol across a bin
+# edge), and 150 Adam steps and the Nyström serve's cancellation carry that
+# on.  Read on the H100 at the Fig. 6 setting: center 1.2e-3 (1.7e-3 after
+# the update), broadcast 1.5e-4 (3.6e-4), poe 6e-7 (no wire) (PERF.md §6,
+# PR 26); the [mesh] line counts the reconstructed symbols that moved
+MESH_OUT_TOL = 5e-3
+MESH_SERVE_ARGS = ("--m", "4", "--bits", "24", "--n", "400", "--steps", "10", "--queries", "8")
+
+
+def mesh_rank(cfg, parts, batches, X_new, y_new, ckpt, device):
+    """One rank (machine) of phase l, every rank running it with the same
+    arguments: fit ``impl="mesh"`` (timed between barriers), one cold then
+    the timed warm requests, the contract and the ops of a warm request,
+    a save, one streamed batch.  Returns this rank's numbers (numpy)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.analysis import check_contracts
+    from repro_torch.analysis.contracts import predict_ops
+    from repro_torch.analysis.op_walk import collective_stats, primitive_counts
+    from repro_torch.core import DGPConfig, DistributedGP
+    from repro_torch.kernels import runtime
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    est = DistributedGP(DGPConfig(impl="mesh", **cfg), device=device)
+    runtime.reset_launches()
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    art = est.fit(parts=parts)
+    sync()
+    dist.barrier()
+    fit_s = time.perf_counter() - t0
+    est.predict(art, batches[0])  # cold
+    mus, vars_, times = [], [], []
+    for xb in batches:
+        sync()
+        t = time.perf_counter()
+        mu, var = est.predict(art, xb)
+        sync()
+        times.append(time.perf_counter() - t)
+        mus.append(mu)
+        vars_.append(var)
+    report = check_contracts(art, batches[0], raise_on_violation=False)
+    ops = predict_ops(art, batches[0])
+    path = est.save(art, ckpt)
+    sync()
+    t = time.perf_counter()
+    grown = est.update(art, X_new, y_new, machine=MESH_UPDATE_MACHINE)
+    sync()
+    update_s = time.perf_counter() - t
+    mu_u, var_u = est.predict(grown, batches[0])
+    ledgers = lambda a: (a.wire_bits, a.payload_bits, a.integrity_bits)
+    return {"fit_s": fit_s, "times": times, "mu": torch.cat(mus), "var": torch.cat(vars_),
+            "ledgers": ledgers(art), "lengths": art.lengths, "ledgers_after": ledgers(grown),
+            "lengths_after": grown.lengths, "update_s": update_s, "mu_u": mu_u, "var_u": var_u,
+            "contract_ok": report.ok, "findings": [str(f) for f in report.findings],
+            "collectives": {k: v["count"] for k, v in collective_stats(ops).items()},
+            "factorizations": dict(primitive_counts(ops, names=("cholesky", "eigh"))),
+            "launches": runtime.launches(), "path": path,
+            "decoded": None if art.wire is None else art.wire.decoded}
+
+
+def mesh_phase(dev, parts, batches, X_new, y_new, m=MESH_M, steps=150,
+               serve_args=MESH_SERVE_ARGS):
+    """Phase l on ``dev``: ``m`` spawned ranks (one per machine, gloo over
+    the one card) fit broadcast (KL), poe-rBCM and center with
+    ``impl="mesh"`` at the Fig. 6 setting, serve the requests, save and
+    stream one 16-row batch; each path is held against a batched ``xla``
+    fit in this process on the same parts: the ledgers as integers and the
+    accounting formulas, mu and var within MESH_OUT_TOL of scale, every
+    rank's answer the same bits, a warm request's collectives exactly
+    MESH_COLLECTIVES and no cholesky or eigh, the update's increments the
+    formulas and the batched update's, the checkpoint reloaded
+    single-process with mu within MESH_RELOAD_MU_TOL and var within
+    MESH_RELOAD_VAR_TOL of scale, and no hand-written kernel
+    launched on any rank (the mesh runs ``xla``).  Then ``serve_gp --mesh``
+    at MESH_SERVE_ARGS (its own 4 ranks).  Prints the ranks' start-up
+    seconds, their contexts' memory, fit seconds and request p50 / p99."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.accounting import (
+        integrity_bits_formula, payload_bits_formula, wire_bits_formula,
+    )
+    from repro_torch.core import DGPConfig, DistributedGP
+    from repro_torch.launch import serve_gp
+    from repro_torch.launch.ranks import RankPool
+
+    cuda = dev.type == "cuda"
+    d = parts[0][0].shape[1]
+    free0 = torch.cuda.mem_get_info()[0] if cuda else 0
+    t0 = time.perf_counter()
+    pool = RankPool(m, device=dev.type, timeout=900)
+    up_s = time.perf_counter() - t0
+    ctx_gb = (free0 - torch.cuda.mem_get_info()[0]) / 1e9 if cuda else float("nan")
+    start = np.array(pool.startup_s)
+    print(f"[mesh] {m} ranks up in {up_s:.1f} s (each from spawn to ready: median "
+          f"{np.median(start):.1f} s, max {start.max():.1f} s); their contexts "
+          f"{ctx_gb:.2f} GB of the card ({ctx_gb / m:.3f} GB a rank)", flush=True)
+    launches = {}
+    X_new_t = torch.from_numpy(np.asarray(X_new))
+    try:
+        for tag, cfg in MESH_RUNS.items():
+            cfg = dict(steps=steps, **cfg)
+            ckpt = ROOT / "build" / f"chip_smoke_mesh_{tag}"
+            shutil.rmtree(ckpt, ignore_errors=True)
+            t_run = time.perf_counter()
+            outs = pool.run(mesh_rank, cfg, parts, batches, X_new, y_new, str(ckpt), dev.type)
+            run_s = time.perf_counter() - t_run
+            o = outs[0]
+            for r, x in enumerate(outs):
+                check(all(np.array_equal(x[k], o[k]) for k in ("mu", "var", "mu_u", "var_u")),
+                      f"mesh {tag}: rank {r} answered other bits than rank 0")
+                check(x["ledgers"] == o["ledgers"] and x["ledgers_after"] == o["ledgers_after"],
+                      f"mesh {tag}: rank {r} holds other ledgers")
+                check(x["contract_ok"], f"mesh {tag}: rank {r} contract: {x['findings']}")
+                check(x["collectives"] == MESH_COLLECTIVES[tag],
+                      f"mesh {tag}: a warm request ran {x['collectives']}, not "
+                      f"{MESH_COLLECTIVES[tag]}")
+                check(x["factorizations"] == {"cholesky": 0, "eigh": 0},
+                      f"mesh {tag}: a warm request factorized: {x['factorizations']}")
+                check(not any(x["launches"].values()),
+                      f"mesh {tag}: rank {r} launched a hand-written kernel: {x['launches']}")
+            launches[f"mesh {tag}"] = {k: sum(x["launches"][k] for x in outs)
+                                       for k in o["launches"]}
+            # the batched fit on this device, on the same parts
+            est = DistributedGP(DGPConfig(gram_backend="xla", **cfg), device=dev)
+            art = est.fit(parts=parts)
+            answers = [est.predict(art, xb) for xb in batches]
+            mu = torch.cat([a[0] for a in answers]).cpu().numpy()
+            var = torch.cat([a[1] for a in answers]).cpu().numpy()
+            got = tuple(o["ledgers"])
+            want = (art.wire_bits, art.payload_bits, art.integrity_bits)
+            check(got == want and tuple(o["lengths"]) == art.lengths,
+                  f"mesh {tag}: ledgers {got} / lengths {o['lengths']} against the batched "
+                  f"{want} / {art.lengths}")
+            L = art.lengths
+            skip = art.block_order[0] if art.protocol == "center" else None
+            if art.wire is not None:
+                rates = art.wire.rates.cpu().numpy()
+                formulas = (wire_bits_formula(rates, L, d, skip=skip),
+                            payload_bits_formula(L, d, art.bits_per_sample, art.max_bits,
+                                                 skip=skip),
+                            integrity_bits_formula(L, skip=skip))
+                check(got == formulas, f"mesh {tag}: ledgers {got} against the formulas "
+                      f"{formulas}")
+            err = [float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                   for a, b in ((o["mu"], mu), (o["var"], var))]
+            moved = "no wire"
+            if art.wire is not None:  # the reconstructions the two fits decoded
+                dx = np.abs(o["decoded"] - art.wire.decoded.cpu().numpy())
+                scale = max(1.0, float(np.abs(o["decoded"]).max()))
+                moved = (f"{int((dx > 1e-4 * scale).sum())} of {dx.size} reconstructed "
+                         f"symbols moved (max {float(dx.max()):.3e})")
+            # the streamed batch: the batched update's increments, the formulas'
+            grown = est.update(art, X_new_t, y_new, machine=MESH_UPDATE_MACHINE)
+            inc = tuple(a - b for a, b in zip(o["ledgers_after"], o["ledgers"]))
+            inc_b = (grown.wire_bits - art.wire_bits, grown.payload_bits - art.payload_bits,
+                     grown.integrity_bits - art.integrity_bits)
+            n_new = X_new_t.shape[0]
+            if art.wire is None:
+                inc_f = (0, 0, 0)
+            else:
+                j = MESH_UPDATE_MACHINE
+                Lj = [n_new if q == j else 0 for q in range(len(L))]
+                side = 2 * d * d * 32  # a streamed batch carries no side info
+                inc_f = (wire_bits_formula(rates, Lj, d) - side,
+                         payload_bits_formula(Lj, d, art.bits_per_sample, art.max_bits) - side,
+                         integrity_bits_formula(Lj))
+            mu_u, var_u = (a.cpu().numpy() for a in est.predict(grown, batches[0]))
+            err_u = [float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                     for a, b in ((o["mu_u"], mu_u), (o["var_u"], var_u))]
+            # the checkpoint, written by rank 0, served single-process
+            loaded = DistributedGP(device=dev).load(str(ckpt))
+            back = [loaded.predict(xb) for xb in batches]
+            d_mu = float(np.abs(torch.cat([a[0] for a in back]).cpu().numpy() - o["mu"]).max()
+                         / max(1.0, np.abs(o["mu"]).max()))
+            d_var = float(np.abs(torch.cat([a[1] for a in back]).cpu().numpy() - o["var"]).max()
+                          / max(1.0, np.abs(o["var"]).max()))
+            shutil.rmtree(ckpt, ignore_errors=True)
+            t_ms = np.array(o["times"]) * 1e3
+            fit_s = np.array([x["fit_s"] for x in outs])
+            print(f"[mesh] {tag}: fit {fit_s.max():.3f} s (the slowest rank); request p50 "
+                  f"{np.percentile(t_ms, 50):.3f} ms p99 {np.percentile(t_ms, 99):.3f} ms "
+                  f"({len(t_ms)} x {batches[0].shape[0]} queries, rank 0, host clock, "
+                  f"synchronized); collectives a request {o['collectives']}; ledgers {got}; "
+                  f"mu / var {err[0]:.3e} / {err[1]:.3e} of scale from the batched fit, "
+                  f"{moved}; "
+                  f"update {o['update_s']:.3f} s, +{inc} (batched +{inc_b}, formulas "
+                  f"+{inc_f}), then mu / var {err_u[0]:.3e} / {err_u[1]:.3e}; reload mu "
+                  f"{d_mu:.1e}, var {d_var:.1e} of scale; same bits on {m} ranks; run "
+                  f"{run_s:.1f} s", flush=True)
+            check(max(err) <= MESH_OUT_TOL,
+                  f"mesh {tag}: mu / var {err} of scale from the batched fit (> {MESH_OUT_TOL})")
+            check(inc == inc_b == inc_f and tuple(o["lengths_after"]) == grown.lengths,
+                  f"mesh {tag}: update increments {inc}, batched {inc_b}, formulas {inc_f}")
+            check(max(err_u) <= MESH_OUT_TOL, f"mesh {tag}: after the update {err_u} of scale")
+            check(loaded.impl == "batched" and d_mu <= MESH_RELOAD_MU_TOL
+                  and d_var <= MESH_RELOAD_VAR_TOL,
+                  f"mesh {tag}: the reloaded checkpoint answers mu {d_mu:.3e}, var "
+                  f"{d_var:.3e} of scale away (> {MESH_RELOAD_MU_TOL}, {MESH_RELOAD_VAR_TOL})")
+    finally:
+        pool.close()
+    t0 = time.perf_counter()
+    res = serve_gp.main(list(serve_args) + ["--device", dev.type, "--mesh"])
+    check(res["contract_ok"] and res["impl"] == "mesh"
+          and res["op_counts"]["cholesky"] == res["op_counts"]["eigh"] == 0,
+          f"mesh serve_gp: {res}")
+    print(f"[mesh] serve_gp {' '.join(serve_args)} --mesh: contract {res['contract']} ok, "
+          f"fit {res['fit_s']:.3f} s, warm p50 {res['p50_ms']:.3f} ms p99 "
+          f"{res['p99_ms']:.3f} ms; run {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
@@ -2728,6 +2985,13 @@ def main():
         check(all(path_launches[f"serve {tag}"][k] > 0 for k in kernels),
               f"serve {tag}: a kernel of the path never launched")
     print(f"[serve] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # l. impl="mesh": 40 processes, one per machine, on the card (no kernel:
+    # the mesh assembles with "xla", as the reference's does)
+    t0 = time.perf_counter()
+    print(f"[mesh] {smi}", flush=True)
+    path_launches.update(mesh_phase(dev, parts, batches, X_te[3100:3116], y_te[3100:3116]))
+    print(f"[mesh] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"

@@ -8,8 +8,9 @@ module states them as rules over the planes the checker inspects:
 
 * the ops a predict dispatches (:mod:`.op_walk`): :class:`PrimitiveBudget`,
   :class:`NoHostCallbacks`, :class:`CollectiveBudget`;
-* the devices of the artifact's tensors (:class:`NoShardingLeak`, which in
-  one process checks that every tensor sits on the artifact's device);
+* the devices of the artifact's tensors (:class:`NoShardingLeak`: every
+  tensor on the artifact's device and, for a mesh artifact, every tensor
+  outside its per-machine groups the same on every rank);
 * the §4 ledgers against :mod:`repro_torch.comm.accounting`
   (:class:`LedgerAccounting`).
 
@@ -57,6 +58,7 @@ __all__ = [
     "check_contracts",
     "predict_ops",
     "find_sharding_leaks",
+    "find_rank_leaks",
     "retrace_budget",
 ]
 
@@ -160,12 +162,13 @@ class NoHostCallbacks:
 
 @dataclasses.dataclass(frozen=True)
 class CollectiveBudget:
-    """Collective ops allowed in the call (``max_count``).  In one process
-    there are none (:data:`~.op_walk.COLLECTIVE_OPS` is empty) and the
-    serve contracts budget 0; the mesh port adds the reference's byte
-    budget with its collectives."""
+    """The wire is the only collective channel, and it is budgeted:
+    ``max_count`` collective ops in the call (:data:`~.op_walk.COLLECTIVE_OPS`;
+    the batched serve budgets 0, the fused mesh epilogue exactly one
+    all-reduce) and, optionally, ``max_bytes`` of collective payload."""
 
     max_count: int = 0
+    max_bytes: int | None = None
     name: str = "collective-budget"
 
     def check(self, ctx) -> list:
@@ -173,11 +176,16 @@ class CollectiveBudget:
             return []
         stats = collective_stats(ctx.ops)
         total = sum(v["count"] for v in stats.values())
-        if total <= self.max_count:
-            return []
-        detail = ", ".join(f"{k} x{v['count']}" for k, v in sorted(stats.items()))
-        return [f"{total} collective ops ({detail}) > budget {self.max_count} "
-                "— an unaccounted channel beside the §4 wire"]
+        out = []
+        if total > self.max_count:
+            detail = ", ".join(f"{k} x{v['count']}" for k, v in sorted(stats.items()))
+            out.append(f"{total} collective ops ({detail}) > budget {self.max_count} "
+                       "— an unaccounted channel beside the §4 wire")
+        if self.max_bytes is not None:
+            nbytes = sum(v["bytes"] for v in stats.values())
+            if nbytes > self.max_bytes:
+                out.append(f"collective payload {nbytes} B > budgeted {self.max_bytes} B")
+        return out
 
 
 def _tensor_leaves(obj, path=""):
@@ -210,21 +218,54 @@ def find_sharding_leaks(art, *, max_devices: int = 1) -> list:
     return [(p, str(t.device)) for p, t in leaves if t.device != art.device]
 
 
+def find_rank_leaks(art, allow_prefixes=()) -> list:
+    """The mesh form of a sharding leak: tensors of ``art`` outside the
+    ``allow_prefixes`` groups (which hold one machine per rank by design)
+    that differ between the ranks of the default process group, or hold
+    one machine's slice (a leading axis of 1 where there are m machines),
+    as ``[(path, what), ...]``.  Every rank must call it (one gather of
+    each tensor's CRC32)."""
+    import zlib
+
+    from ..comm import collectives as C
+
+    m = len(art.fit_lengths)
+    leaves = [(p, t) for p, t in _tensor_leaves(art)
+              if not any(p.startswith(a) for a in allow_prefixes)]
+    crc = torch.tensor([zlib.crc32(t.detach().cpu().contiguous().numpy().tobytes())
+                        for _, t in leaves], dtype=torch.int64)
+    crcs = C.all_gather(crc)
+    out = [(p, "differs between ranks") for i, (p, _) in enumerate(leaves)
+           if bool((crcs[:, i] != crcs[0, i]).any())]
+    out += [(p, "holds one machine's slice") for p, t in leaves
+            if m > 1 and t.dim() > 0 and t.shape[0] == 1]
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class NoShardingLeak:
-    """Every tensor of the artifact on the artifact's one device."""
+    """Every tensor of the artifact on the artifact's one device; for a mesh
+    artifact also every tensor outside ``allow_prefixes`` (the groups that
+    hold one machine per rank: ``factors/``, ``data/``) whole and the same
+    on every rank (:func:`find_rank_leaks`)."""
 
     max_devices: int = 1
+    allow_prefixes: tuple = ()
     name: str = "no-sharding-leak"
 
     def check(self, ctx) -> list:
-        if ctx.artifact is None:
+        art = ctx.artifact
+        if art is None:
             return []
-        return [
+        out = [
             f"tensor {path!r} is on {dev}, not on the artifact's device "
-            f"{ctx.artifact.device} — every request would move or fail on it"
-            for path, dev in find_sharding_leaks(ctx.artifact, max_devices=self.max_devices)
+            f"{art.device} — every request would move or fail on it"
+            for path, dev in find_sharding_leaks(art, max_devices=self.max_devices)
         ]
+        if getattr(art, "impl", None) == "mesh":
+            out += [f"tensor {path!r} {what} — only factors and data may hold one "
+                    "machine per rank" for path, what in find_rank_leaks(art, self.allow_prefixes)]
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -352,7 +393,8 @@ def predict_ops(art, X_star=None):
     """The ops of one predict of ``art`` at ``X_star`` (an (8, d) batch of
     zeros when None), recorded side-effect-neutrally.  The batch is put on
     the artifact's device before recording, so the upload of a host batch
-    is not counted as the predict's."""
+    is not counted as the predict's.  A broadcast or poe mesh artifact
+    serves collectively: every rank must call it together."""
     from ..core.protocols import base
 
     if X_star is None:

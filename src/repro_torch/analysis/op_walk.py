@@ -5,7 +5,9 @@ The reference inspects the jaxpr of a compiled program.  The port compiles
 nothing, so the program of a call is what it dispatches: :func:`record_ops`
 runs the call once under a ``TorchDispatchMode`` and counts the ``aten``
 ops that reach the dispatcher (composite ops arrive decomposed, so
-``torch.linalg.cholesky`` is counted as ``linalg_cholesky_ex``).  The
+``torch.linalg.cholesky`` is counted as ``linalg_cholesky_ex``) and the
+collectives between machine processes, under their namespace
+(``c10d.allreduce_``) and with the bytes each delivers.  The
 tables below map those names onto the reference's primitive names, so
 reports read the same in both packages.
 
@@ -30,6 +32,7 @@ __all__ = [
     "FACTORIZATION_PRIMITIVES",
     "HOST_SYNC_OPS",
     "COLLECTIVE_OPS",
+    "BYTES",
     "KERNEL_SYMBOLS",
     "record_ops",
     "primitive_counts",
@@ -65,9 +68,12 @@ FACTORIZATION_PRIMITIVES = frozenset(FACTORIZATION_OPS)
 # Off the card the only copies are CPU to CPU, so only the first shows.
 HOST_SYNC_OPS = frozenset({"_local_scalar_dense", "copy_to_host"})
 
-# cross-device collectives: none in one process.  The mesh substrate
-# (ROADMAP slice 7) adds its torch.distributed ops here.
-COLLECTIVE_OPS = frozenset()
+# the collectives between machine processes: the c10d ops that
+# repro_torch.comm.collectives dispatches (recorded under their namespace;
+# none in one process)
+COLLECTIVE_OPS = frozenset({"c10d.allreduce_", "c10d.allgather_", "c10d.broadcast_"})
+# a collective's payload is recorded beside its count, under this suffix
+BYTES = "/bytes"
 
 # the __global__ functions of kernels/csrc, by the family that launches
 # them (the two epilogue families share one body, as do the two qgrams)
@@ -108,6 +114,12 @@ class _Recorder(TorchDispatchMode):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = func.overloadpacket.__name__
+        if func.namespace == "c10d":
+            name = f"c10d.{name}"
+            # the bytes the collective delivers: its output tensors (in place
+            # for allreduce_ / broadcast_, the gathered lists for allgather_)
+            self.counts[name + BYTES] += sum(t.numel() * t.element_size()
+                                             for t in _tensors(args[0]))
         self.counts[name] += 1
         if name in ("_to_copy", "copy_"):
             srcs = list(_tensors(args[1:] if name == "copy_" else args[:1]))
@@ -143,19 +155,22 @@ def primitive_counts(ops, names=None) -> collections.Counter:
 
 
 def collective_stats(ops) -> dict:
-    """``{name: {"count": int}}`` for each collective op of ``ops`` — empty
-    in one process (:data:`COLLECTIVE_OPS`; the mesh port adds the bytes
-    each moves, which the reference budgets)."""
-    return {name: {"count": int(n)} for name, n in sorted(ops.items())
-            if name in COLLECTIVE_OPS and n}
+    """``{name: {"count": int, "bytes": int}}`` for each collective op of
+    ``ops`` (:data:`COLLECTIVE_OPS`) — the payload is what the op's output
+    tensors hold; empty in one process."""
+    return {name: {"count": int(n), "bytes": int(ops.get(name + BYTES, 0))}
+            for name, n in sorted(ops.items()) if name in COLLECTIVE_OPS and n}
 
 
 # sentinel kernels (``torch.cuda._sleep``, a ``spin_kernel``) that lead
 # every trace of :func:`kernel_trace`: the profiler drops the first few
 # kernel records of a trace, more of them the longer the process has run
-# (none in a fresh process, a handful after a few minutes of work), so
-# the sentinels take that loss and the call's own kernels all come after
-_SENTINELS = 64
+# (none in a fresh process, a handful after a few minutes of work, once
+# more than 64 late in a 40-minute smoke), so the sentinels take that loss
+# and the call's own kernels all come after
+_SENTINELS = 256
+# traces taken before giving up, when one loses every sentinel
+_TRACE_ATTEMPTS = 3
 
 
 def kernel_trace(fn, *args, **kwargs) -> tuple:
@@ -163,27 +178,34 @@ def kernel_trace(fn, *args, **kwargs) -> tuple:
     ``fn`` runs, in the order they started, from ``torch.profiler``'s CUDA
     activities, and how many of the trace's leading sentinel records the
     profiler dropped; ``([], 0)`` without CUDA.  This sees the
-    hand-written kernels too, which :func:`record_ops` cannot.  Raises if
-    every sentinel was dropped: the call's own records may be short."""
+    hand-written kernels too, which :func:`record_ops` cannot.  A trace
+    that lost every sentinel may have lost the call's own records too: the
+    call is traced again, and after ``_TRACE_ATTEMPTS`` such traces this
+    raises.  So ``fn`` must be free of effects that anyone reads later
+    (launch counters, a growth count, a changed artifact): it may run up to
+    ``_TRACE_ATTEMPTS`` times."""
     if not torch.cuda.is_available():
         fn(*args, **kwargs)
         return [], 0
-    torch.cuda.synchronize()  # earlier work still in flight stays out of the trace
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(_SENTINELS):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        fn(*args, **kwargs)
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    names = [e.name for e in events]
-    lead = [i for i, n in enumerate(names) if "spin_kernel" in n]
-    if not lead:
-        raise RuntimeError(f"kernel_trace: the profiler dropped all {_SENTINELS} sentinel "
-                           "records that lead the trace; the call's own may be short too")
-    return names[lead[-1] + 1:], _SENTINELS - len(lead)
+    for _ in range(_TRACE_ATTEMPTS):
+        torch.cuda.synchronize()  # earlier work still in flight stays out of the trace
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(_SENTINELS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            fn(*args, **kwargs)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        lead = [i for i, n in enumerate(names) if "spin_kernel" in n]
+        if lead:
+            return names[lead[-1] + 1:], _SENTINELS - len(lead)
+    raise RuntimeError(f"kernel_trace: the profiler dropped all {_SENTINELS} sentinel "
+                       f"records that lead the trace, {_TRACE_ATTEMPTS} times; the call's "
+                       "own may be short too")
 
 
 def kernel_events(fn, *args, **kwargs) -> list:

@@ -20,6 +20,10 @@
 The estimator runs on ``device`` — the CUDA card unless the caller passes
 another (``device="cpu"`` runs the plain PyTorch versions of the kernels);
 without CUDA, the default raises.  Artifacts live on the estimator's device.
+With ``DGPConfig(impl="mesh")`` every machine is one process of a
+``torch.distributed`` group and every rank calls the same methods with the
+same arguments (``repro_torch.launch.ranks`` starts such processes); rank i
+reads only ``parts[i]``, and results come back on every rank.
 """
 from __future__ import annotations
 

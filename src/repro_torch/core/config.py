@@ -4,8 +4,9 @@ The same frozen dataclass with the same fields, defaults and validation, so
 a config (and the ``config`` block of a checkpoint's ``meta.json``) means
 the same in both packages.  ``gram_backend="pallas"`` selects the port's
 hand-written Hopper kernels (``gram``, ``qgram_packed``); ``"xla"`` the
-plain PyTorch path (matmuls).  ``impl="mesh"`` validates, and ``fit``
-raises ``NotImplementedError`` naming its ROADMAP slice.  ``faults`` takes
+plain PyTorch path (matmuls).  ``impl="mesh"`` runs one process per
+machine (:mod:`repro_torch.core.protocols.mesh`) and, as in the reference,
+takes neither ``"pallas"`` nor ``scheme="vq"``.  ``faults`` takes
 the port's :class:`~repro_torch.faults.FaultPlan`, which ``meta.json``
 records as the reference does.
 """

@@ -17,9 +17,11 @@ numerics, signatures and return types of the calls they wrap.
 
 The legacy ``fit`` takes the reference's loose keyword arguments and maps
 them onto one validated :class:`~repro_torch.core.config.DGPConfig`, plus
-the port's ``device=`` (the card when None).  The mesh names
-(``broadcast_gp_mesh``, ``machine_mesh``, ``MESH_AXIS``) wait for the mesh
-substrate and raise ``NotImplementedError`` on access.
+the port's ``device=`` (the card when None).  The mesh names are the
+port's: ``broadcast_gp_mesh`` and ``MESH_AXIS`` from
+:mod:`repro_torch.core.protocols.mesh`, and ``machine_mesh``, which is
+``machine_group`` (the process group of one rank per machine stands where
+the reference's device mesh stood).
 """
 from __future__ import annotations
 
@@ -54,6 +56,12 @@ from .protocols.broadcast import (  # noqa: F401
     _train_inner_products,
 )
 from .protocols.center import CenterGP, _pallas_ip_rows  # noqa: F401
+from .protocols.mesh import (  # noqa: F401
+    MESH_AXIS,
+    _run_wire_protocol_mesh,
+    broadcast_gp_mesh,
+)
+from .protocols.mesh import machine_group as machine_mesh  # noqa: F401
 from .protocols.poe import HostPoEGP  # noqa: F401
 from .protocols.wire import _run_wire_protocol  # noqa: F401
 
@@ -74,18 +82,10 @@ __all__ = [
     "single_center_gp",
     "broadcast_gp",
     "poe_baseline",
+    "broadcast_gp_mesh",
+    "machine_mesh",
+    "MESH_AXIS",
 ]
-
-_MESH_NAMES = ("broadcast_gp_mesh", "machine_mesh", "MESH_AXIS")
-
-
-def __getattr__(name):
-    if name in _MESH_NAMES:
-        raise NotImplementedError(
-            f"repro_torch.core.distributed_gp.{name} is not ported yet (the mesh "
-            "substrate is queue 1, slice 7 in ROADMAP.md)"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 # warn once per process per entry point, without touching the global
@@ -119,7 +119,8 @@ def _legacy_config(bits_per_sample, protocol, kernel, steps, lr, gram_mode, fuse
     port trains with one Adam loop, which computes what both of the
     reference's ``train_impl`` values ("scan", "loop") compute; any other
     value is refused by name, as is an ``impl`` other than "batched" or
-    "mesh" (and "mesh" raises, naming its slice, in ``base.fit``)."""
+    "mesh" ("mesh" runs on every rank of a process group of one rank per
+    machine, ``base.fit``)."""
     from .config import TRAIN_IMPLS, DGPConfig
 
     if impl not in ("batched", "mesh"):

@@ -5,7 +5,8 @@
   =>  mu*    = mean_i mu_i                                   (63)
       Sigma* = mean_i [ Sigma_i + (mu* - mu_i)(mu* - mu_i)^T ] (64)
 
-The reference's mesh form ``kl_fuse_diag_psum`` comes with the mesh slice.
+:func:`kl_fuse_diag_psum` is the mesh form: each machine process holds its
+own predictive and the barycenter is two all-reduces over the group.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from .registry import FusionSpec, register_fusion
 
-__all__ = ["kl_fuse", "kl_fuse_diag", "kl_moments", "kl_finalize"]
+__all__ = ["kl_fuse", "kl_fuse_diag", "kl_fuse_diag_psum", "kl_moments", "kl_finalize"]
 
 
 def kl_fuse(mus, Sigmas):
@@ -43,6 +44,25 @@ def kl_fuse_diag(mus, s2s, w=None):
     return mu, s2 * (m / m_eff)
 
 
+def kl_fuse_diag_psum(mu_i, s2_i, group=None, w_i=None):
+    """:func:`kl_fuse_diag` as a collective epilogue: every rank of
+    ``group`` holds ITS machine's predictive (mu_i, s2_i) (t,) and the
+    barycenter is two all-reduces.  ``w_i`` is the rank's own availability
+    weight (the degraded form mirrors the stacked one term for term)."""
+    from ..comm.collectives import all_reduce, group_size
+
+    m = group_size(group)
+    if w_i is None:
+        mu = all_reduce(mu_i, group) / m
+        s2 = all_reduce(s2_i + (mu - mu_i) ** 2, group) / m
+        return mu, s2
+    m_eff = torch.clamp(all_reduce(torch.as_tensor(w_i, dtype=mu_i.dtype,
+                                                   device=mu_i.device), group), min=1.0)
+    mu = all_reduce(w_i * mu_i, group) / m_eff
+    s2 = all_reduce(w_i * (s2_i + (mu - mu_i) ** 2), group) / m_eff
+    return mu, s2 * (m / m_eff)
+
+
 def kl_moments(mu_i, s2_i, prior_var=None, w_i=None):
     """One machine's KL-barycenter moment rows ``[w mu_i, w (s2_i + mu_i^2),
     w]``: their sum over machines is sufficient for eqs. 63-64, since
@@ -66,6 +86,8 @@ def kl_finalize(S, m, prior_var=None):
 register_fusion(FusionSpec(
     name="kl",
     fuse=lambda mus, s2s, prior_var=None, w=None: kl_fuse_diag(mus, s2s, w),
+    fuse_psum=lambda mu_i, s2_i, prior_var, group, w_i=None: kl_fuse_diag_psum(
+        mu_i, s2_i, group, w_i),
     moments=kl_moments,
     finalize=kl_finalize,
 ))

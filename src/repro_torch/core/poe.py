@@ -8,8 +8,8 @@ point; the combiners differ in precision weighting.  ``prior_var`` is the
 prior k(x*, x*) + sigma_eps^2 that (r)BCM need.  Every combiner takes
 optional availability weights ``w`` (m,): a 0 weight removes that expert's
 factor and, for the committee machines, its prior correction.  ``w=None``
-is the healthy fleet.  The reference's mesh form ``combine_psum`` comes
-with the mesh slice.
+is the healthy fleet.  :func:`combine_psum` is the mesh form: every sum
+over experts is an all-reduce over the machine processes.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ import torch
 
 from .registry import FusionSpec, register_fusion
 
-__all__ = ["poe", "gpoe", "bcm", "rbcm", "combine", "combine_moments",
+__all__ = ["poe", "gpoe", "bcm", "rbcm", "combine", "combine_psum", "combine_moments",
            "combine_finalize"]
 
 
@@ -92,6 +92,44 @@ def combine(method: str, mus, s2s, prior_var=None, w=None):
                               prior_var, w=w)
 
 
+def combine_psum(method: str, mu_i, s2_i, prior_var, group=None, w_i=None):
+    """The combiners as collective epilogues: every rank of ``group`` holds
+    ITS expert's (mu_i, s2_i) (t,) and every sum over experts is an
+    all-reduce.  Agrees with :func:`combine` on the stacked predictives
+    (``w_i`` is the rank's own availability weight; the degraded form
+    mirrors the stacked one term for term)."""
+    from ..comm.collectives import all_reduce, group_size
+
+    psum = lambda v: all_reduce(torch.as_tensor(v, dtype=mu_i.dtype, device=mu_i.device),
+                                group)
+    m = group_size(group)
+    if method == "poe":
+        if w_i is None:
+            prec = psum(1.0 / s2_i)
+            return psum(mu_i / s2_i) / prec, 1.0 / prec
+        prec = torch.clamp(psum(w_i / s2_i), min=1e-12)
+        return psum(w_i * mu_i / s2_i) / prec, 1.0 / prec
+    if method == "gpoe":
+        beta_i = 1.0 / m if w_i is None else w_i / torch.clamp(psum(w_i), min=1.0)
+        prec = psum(beta_i / s2_i)
+        if w_i is not None:
+            prec = torch.clamp(prec, min=1e-12)
+        return psum(beta_i * mu_i / s2_i) / prec, 1.0 / prec
+    if method == "bcm":
+        m_eff = m if w_i is None else psum(w_i)
+        w = 1.0 if w_i is None else w_i
+        prec = torch.clamp(psum(w / s2_i) - (m_eff - 1.0) / prior_var, min=1e-12)
+        return psum(w * mu_i / s2_i) / prec, 1.0 / prec
+    if method == "rbcm":
+        beta_i = 0.5 * (torch.log(prior_var) - torch.log(s2_i))
+        if w_i is not None:
+            beta_i = beta_i * w_i
+        prec = psum(beta_i / s2_i) + (1.0 - psum(beta_i)) / prior_var
+        prec = torch.clamp(prec, min=1e-12)
+        return psum(beta_i * mu_i / s2_i) / prec, 1.0 / prec
+    raise ValueError(f"unknown combiner {method!r}")
+
+
 def combine_moments(method: str, mu_i, s2_i, prior_var=None, w_i=None):
     """One expert's moment rows for the fused epilogue: the PoE family sums
     per-expert precision terms, so the rows ``[w/s2_i, w mu_i/s2_i, w]``
@@ -133,6 +171,7 @@ for _name in _COMBINERS:
     register_fusion(FusionSpec(
         name=_name,
         fuse=partial(combine, _name),
+        fuse_psum=partial(combine_psum, _name),
         moments=partial(combine_moments, _name),
         finalize=partial(combine_finalize, _name),
     ))

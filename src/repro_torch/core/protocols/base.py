@@ -298,7 +298,12 @@ def _apply_fit_faults(parts, cfg):
         return parts, 0
     new_parts, removed = apply_to_parts(
         [(_numpy(X), _numpy(y)) for X, y in parts], plan)
-    lengths = [int(p[0].shape[0]) for p in new_parts]
+    _check_fit_lengths([int(p[0].shape[0]) for p in new_parts], cfg)
+    return new_parts, removed
+
+
+def _check_fit_lengths(lengths, cfg):
+    """The guards of :func:`_apply_fit_faults` on the surviving row counts."""
     if not any(lengths):
         raise ValueError(
             "fault plan removed every row from every machine — nothing to fit"
@@ -315,7 +320,6 @@ def _apply_fit_faults(parts, cfg):
             "hyperparameters — drop a different machine (prediction-time "
             "availability masks handle arbitrary loss)"
         )
-    return new_parts, removed
 
 
 def _refuse_host_flips(cfg):
@@ -332,13 +336,14 @@ def fit(parts, cfg, params: GPParams | None = None, device=None):
     """Run the configured protocol once on ``device`` (the card when None)
     and return the serving artifact (the engine under
     ``DistributedGP.fit``).  ``impl="host"`` returns the protocol's serial
-    oracle model instead (same ``.predict`` surface, no artifact)."""
-    if cfg.impl == "mesh":
-        raise NotImplementedError(
-            'impl="mesh" is not ported yet (the mesh substrate is queue 1, '
-            "slice 7 in ROADMAP.md)"
-        )
+    oracle model instead (same ``.predict`` surface, no artifact).
+    ``impl="mesh"`` runs on every rank of a process group of one rank per
+    machine, each calling ``fit`` with the same arguments (:mod:`.mesh`)."""
     spec = PROTOCOLS.get(cfg.protocol)
+    if cfg.impl == "mesh":
+        from .mesh import machine_group
+
+        machine_group(len(parts))  # one rank per machine, or raise
     if cfg.impl == "host":
         if spec.fit_host is None:
             raise NotImplementedError(f"protocol {cfg.protocol!r} has no host oracle")
@@ -381,17 +386,28 @@ def predict(art: FittedProtocol, X_star, available=None):
     return _predict_impl(art, X_star, _availability(art, available))
 
 
+def _uses_mesh_predict(art: FittedProtocol) -> bool:
+    """Broadcast and poe mesh artifacts serve on the mesh (each rank its
+    expert, one all-reduce); a mesh center artifact is whole on every rank
+    and serves locally."""
+    return art.impl == "mesh" and art.protocol in ("broadcast", "poe")
+
+
 def _predict_impl(art: FittedProtocol, X_star, avail=None):
     """:func:`predict` after the availability mask is normalized (``avail``
     an (m,) float32 tensor or None): the fleet serves each gathered tenant
-    row through this."""
+    row through this, a mesh artifact its collective serve."""
     p = art.params
     noise = torch.exp(p.log_noise)
     finite_row = torch.isfinite(X_star).all(dim=-1)
     Xq = torch.where(finite_row[:, None], X_star, torch.zeros_like(X_star))
     sq_star = torch.sum(Xq**2, -1)
     g_ss = prior_diag(art.kernel, p, sq_star)
-    mu, var = PROTOCOLS.get(art.protocol).predict(art, Xq, sq_star, g_ss, noise, avail)
+    if _uses_mesh_predict(art):
+        from .mesh import predict_mesh as serve
+    else:
+        serve = PROTOCOLS.get(art.protocol).predict
+    mu, var = serve(art, Xq, sq_star, g_ss, noise, avail)
     ok = finite_row & torch.isfinite(mu) & torch.isfinite(var)
     mu = torch.where(ok, mu, torch.zeros_like(mu))
     var = torch.where(ok, var, g_ss + noise)  # degrade to the prior, not NaN
@@ -472,7 +488,9 @@ def update(art: FittedProtocol, X_new, y_new, machine: int = 0) -> FittedProtoco
     and is refused.  Rows with a NaN or Inf are dropped with a warning; a
     batch with no rows left returns ``art`` itself.  Under a fault plan
     with bit flips the batch is corrupted on the wire like a fit-time one:
-    CRC-failing new rows are demoted, the whole transmission is charged."""
+    CRC-failing new rows are demoted, the whole transmission is charged.
+    A mesh artifact is updated by every rank with the same arguments; only
+    rank ``machine`` reads the batch (:func:`.mesh.update_mesh`)."""
     m = len(art.fit_lengths)
     X_new = torch.as_tensor(X_new, dtype=torch.float32, device=art.device)
     y_new = torch.as_tensor(y_new, dtype=torch.float32, device=art.device)
@@ -485,6 +503,10 @@ def update(art: FittedProtocol, X_new, y_new, machine: int = 0) -> FittedProtoco
             "demoted) — it has no frozen codebooks to stream under; route the "
             "batch to a surviving machine or refit"
         )
+    if art.impl == "mesh":
+        from .mesh import update_mesh
+
+        return update_mesh(art, X_new, y_new, j)
     # a NaN/Inf point would poison the factor growth and every later
     # predict: drop hostile rows, loudly
     finite = torch.isfinite(X_new).all(dim=1) & torch.isfinite(y_new)
@@ -583,7 +605,21 @@ def save_artifact(art: FittedProtocol, directory: str, step: int = 0) -> str:
     """Checkpoint an artifact in the reference's format v6: the npz of
     :func:`artifact_arrays` plus ``meta_*.json`` with the static metadata,
     the config and a CRC32 per array; the reference's ``load_artifact``
-    reads it."""
+    reads it.  A mesh artifact is saved by every rank together: the
+    machines' factors are gathered, rank 0 writes, and every rank returns
+    once the files are in place."""
+    if art.impl == "mesh":
+        from ...comm import collectives as C
+        from .mesh import gather_artifact
+
+        whole = gather_artifact(art)
+        path = _write_artifact(whole, directory, step) if C.group_rank() == 0 else None
+        C.barrier()
+        return C.share(path, 0)
+    return _write_artifact(art, directory, step)
+
+
+def _write_artifact(art: FittedProtocol, directory: str, step: int) -> str:
     from ...checkpoint import save_artifact as _save
     from ..config import ARTIFACT_FORMAT_VERSION
 
@@ -710,7 +746,9 @@ def artifact_from_arrays(meta: dict, arrays: dict, device=None) -> FittedProtoco
 
 def load_artifact(directory: str, step: int | None = None, device=None) -> FittedProtocol:
     """Restore a checkpoint of either package onto ``device`` (its CRC32s
-    verified): :func:`artifact_from_arrays` applied to the files."""
+    verified): :func:`artifact_from_arrays` applied to the files.  Always a
+    single-process ``impl="batched"`` artifact, a mesh fit's checkpoint too
+    (its factors were gathered at save time)."""
     from ...checkpoint import load_artifact_arrays
 
     device = resolve_device(device)

@@ -29,7 +29,9 @@ gains the reconstructions as columns, the receiver's its exact rows, and
 the m views' W, L_M, alpha and fused-serve cache grow in one batched call.
 
 ``impl="host"`` runs the serial oracle (:class:`HostBroadcastGP`): one
-host-side scheme fit per machine and one dense solve per view per request.
+host-side scheme fit per machine and one dense solve per view per request;
+``impl="mesh"`` one process per machine, each holding its own view
+(:mod:`.mesh`, ``nystrom`` views only, as in the reference).
 :func:`broadcast_gp` is the reference's one-call entry point.
 
 A fault plan (``DGPConfig.faults``) drops and NaN-poisons shards before the
@@ -266,6 +268,10 @@ def broadcast_gp(parts, bits_per_sample: int, X_star, kernel: str = "se", steps:
 def _fit_broadcast(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
     if cfg.gram_mode not in ("nystrom", "direct"):
         raise ValueError(f"unknown broadcast gram mode {cfg.gram_mode!r}")
+    if cfg.impl == "mesh":
+        from . import mesh
+
+        return mesh.fit_broadcast(parts, cfg, params, device)
     parts, _ = _apply_fit_faults(parts, cfg)
     m = len(parts)
     shards = pad_parts(parts, device)

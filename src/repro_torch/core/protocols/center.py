@@ -114,17 +114,19 @@ def quantize_to_center(parts, bits_per_sample: int, center: int = 0, impl: str =
 
     X_recon stacks the center's exact block first, then every machine's
     decoded points (the paper's gram-row layout); ``sq_norms`` holds each
-    point's exact |x|^2.  impl: ``"host"`` (the serial oracle) or
-    ``"batched"`` (every machine at once); both give integer-identical
+    point's exact |x|^2.  impl: ``"host"`` (the serial oracle),
+    ``"batched"`` (every machine at once) or ``"mesh"`` (one process per
+    machine, the wire through ``comm.q_all_gather``; every rank calls it
+    and gets the center's assembly); all three give integer-identical
     ledgers and matching reconstructions."""
     device = resolve_device(device)
     if impl == "host":
         return _quantize_to_center_host(parts, bits_per_sample, center, max_bits, device)
     if impl == "mesh":
-        raise NotImplementedError(
-            'impl="mesh" is not ported yet (the mesh substrate is queue 1, '
-            "slice 7 in ROADMAP.md)"
-        )
+        from . import mesh
+
+        mesh.machine_group(len(parts))
+        return mesh.quantize_to_center_mesh(parts, bits_per_sample, center, max_bits, device)
     if impl != "batched":
         raise ValueError(f"unknown impl {impl!r}")
     X_recon, y_all, sq_norms, shards, run, _ = _quantize_to_center_batched(
@@ -306,15 +308,27 @@ def single_center_gp(parts, bits_per_sample: int, kernel: str = "se", steps: int
 
 
 def _fit_center(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
+    if cfg.impl == "mesh":
+        from . import mesh
+
+        return mesh.fit_center(parts, cfg, params, device)
     _check_center(cfg, parts)
-    mode = cfg.gram_mode
-    if mode not in ("nystrom", "nystrom_fitc", "direct"):
-        raise ValueError(f"unknown center gram mode {mode!r}")
     parts, _ = _apply_fit_faults(parts, cfg)
     X_recon, y_all, sq_norms, shards, run, order = _quantize_to_center_batched(
         parts, cfg.bits_per_sample, cfg.center, cfg.max_bits, cfg.scheme, device,
         cfg.faults,
     )
+    return _center_artifact(X_recon, y_all, sq_norms, shards, run, order, cfg, params, device)
+
+
+def _center_artifact(X_recon, y_all, sq_norms, shards, run, order, cfg, params,
+                     device) -> FittedProtocol:
+    """The center's half of the fit, from the assembled gram rows: train
+    the hyperparameters on the completion, factorize once, and return the
+    artifact (the batched fit's tail; the mesh fit runs it at the center)."""
+    mode = cfg.gram_mode
+    if mode not in ("nystrom", "nystrom_fitc", "direct"):
+        raise ValueError(f"unknown center gram mode {mode!r}")
     K = shards.lengths[cfg.center]
     d = X_recon.shape[1]
     wire_bits, payload_bits = run.wire_bits, run.payload_bits
@@ -399,11 +413,13 @@ def _predict_center(art: FittedProtocol, X_star, sq_star, g_ss, noise, avail=Non
     return nystrom_apply(art.factors, G_sK, g_ss, noise)
 
 
-def _update_center(art: FittedProtocol, X_new, y_new, j: int, pre):
+def _update_center(art: FittedProtocol, X_new, y_new, j: int, pre, sq_new_exact=None):
     """The streaming append: the receiver's rows ``pre[0]`` become columns
     ``cols .. cols + n_new`` of every column-growable buffer (written into
     copies), the factors grow without refactorizing, the ledgers take
-    ``pre``'s increments."""
+    ``pre``'s increments.  ``sq_new_exact``: the new points' exact |x|^2
+    when the center holds only their reconstructions (the mesh), else
+    computed from ``X_new``."""
     if art.gram_backend == "pallas" and art.gram_mode != "nystrom":
         raise NotImplementedError(
             "streaming update of pallas-backed center artifacts supports "
@@ -418,7 +434,8 @@ def _update_center(art: FittedProtocol, X_new, y_new, j: int, pre):
     k = gram_fn(art.kernel)
     Xc, K = art.data["Xc"], art.n_center
     sq_new = torch.sum(decoded**2, -1)
-    sq_new_exact = torch.sum(X_new**2, -1)
+    if sq_new_exact is None:
+        sq_new_exact = torch.sum(X_new**2, -1)
     y2 = art.y.clone()
     y2[pos:end] = y_new
     f = dict(art.factors)

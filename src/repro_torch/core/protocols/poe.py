@@ -14,7 +14,8 @@ Streaming ``update`` is zero-rate too: the new rows are written into every
 expert's buffer at the shared cursor but are valid on their owner's expert
 only (the others get decoupled unit rows, as fit-time padding does), and
 each expert's dense factor is bordered in one batched call.  The ledgers
-do not move.  ``impl="host"`` runs the serial oracle (:class:`HostPoEGP`).
+do not move.  ``impl="host"`` runs the serial oracle (:class:`HostPoEGP`),
+``impl="mesh"`` one process per expert (:mod:`.mesh`).
 :func:`poe_baseline` is the reference's one-call entry point.
 A fault plan's dropped and NaN-poisoned shards leave their experts short or
 empty (an empty expert is served as lost); its bit flips are a no-op.
@@ -97,6 +98,10 @@ def poe_baseline(parts, X_star, kernel: str = "se", method: str = "rbcm", steps:
 
 
 def _fit_poe(parts, cfg, params: GPParams | None, device) -> FittedProtocol:
+    if cfg.impl == "mesh":
+        from . import mesh
+
+        return mesh.fit_poe(parts, cfg, params, device)
     # zero rate: nothing crosses the wire, so only a plan's data faults apply
     # (its flip_rate has no packed plane to corrupt and is a no-op)
     parts, _ = _apply_fit_faults(parts, cfg)

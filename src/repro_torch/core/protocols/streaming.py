@@ -26,6 +26,9 @@ Padding is EXACT, not approximate:
   zero point, so masking is load-bearing.
 
 The pads run on the tensors' own device (the reference pads on the host).
+A mesh artifact pads the same way on every rank: its factor and data
+buffers hold one machine each (a leading axis of 1), so each rank grows its
+own machine's.
 """
 from __future__ import annotations
 
@@ -121,11 +124,6 @@ def _grow(art, cap: int):
         raise NotImplementedError(
             f"streaming capacity growth is not defined for protocol "
             f"{art.protocol!r}"
-        )
-    if art.impl == "mesh":
-        raise NotImplementedError(
-            "growing mesh artifacts is not ported yet (the mesh substrate is "
-            "queue 1, slice 7 in ROADMAP.md)"
         )
     factors = dict(art.factors)
     for key, pad in spec["factors"].items():

@@ -19,7 +19,9 @@
   the artifact's ``data`` for streaming.  It has no packed words, so it
   refuses a fault plan with flips.
 
-The mesh substrate (slice 7) comes later.
+The mesh substrate runs the per-symbol fit through
+``comm.q_all_gather`` instead (:mod:`.mesh`), one process per machine, and
+then the same receiver (:func:`_corrupt_and_demote`) on every rank.
 """
 from __future__ import annotations
 

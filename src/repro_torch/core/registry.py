@@ -72,11 +72,17 @@ class FusionSpec:
     (m,) for degraded serving.  ``moments`` maps one machine's predictive to
     its (3, t) moment rows and ``finalize`` maps the sum of those rows over
     machines, with the fleet size ``m``, back to the fused ``(mu, s2)`` —
-    the decomposition the fused serve epilogue computes in one kernel.  (The
-    reference's mesh form ``fuse_psum`` comes with the mesh slice.)"""
+    the decomposition the fused serve epilogue computes in one kernel, and
+    the mesh serve in one all-reduce.  ``fuse_psum`` is the fusion as a
+    collective epilogue over the machine processes, each holding its own
+    predictive (``None`` if the fusion has no mesh form); the mesh serve
+    uses it only when ``moments``/``finalize`` are missing, which no
+    built-in fusion (kl, poe, gpoe, bcm, rbcm) is: their psum forms are the
+    reference's API, for a fusion registered without moment rows."""
 
     name: str
     fuse: Callable  # (mus, s2s, prior_var, w=None) -> (mu, s2)
+    fuse_psum: Callable | None = None  # (mu_i, s2_i, prior_var, group, w_i=None) -> (mu, s2)
     moments: Callable | None = None  # (mu_i, s2_i, prior_var, w_i=None) -> (3, t)
     finalize: Callable | None = None  # (S, m, prior_var) -> (mu, s2)
 

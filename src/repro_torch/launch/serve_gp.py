@@ -21,6 +21,10 @@ NaN shards, packed-word bit flips, stragglers: a straggler's slot of the
 serve rotation sleeps its delay) and serves every 7th batch under a
 degraded availability mask with a health report.  ``--fleet`` serves
 y-scaled tenants of the fit through :mod:`repro_torch.launch.fleet`.
+``--mesh`` runs ``impl="mesh"``: the CLI spawns ``--m`` processes, one per
+machine (:mod:`repro_torch.launch.ranks`), which fit, serve and stream
+together, rank 0 printing; with ``--artifact-dir`` the checkpoint is
+reloaded single-process and must answer within 1e-4 of the mesh.
 
 At the end the warm path's structure is printed: the capacity growths of
 the streamed updates (the port's form of the reference's retraces), the
@@ -39,6 +43,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..analysis import check_contracts
 from ..core import DGPConfig, DistributedGP
@@ -202,7 +207,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--stream-size", type=int, default=16,
                     help="points per streaming update")
     ap.add_argument("--mesh", action="store_true",
-                    help="machines as devices (impl='mesh'): not ported yet")
+                    help="machines as processes (impl='mesh'): spawn --m gloo ranks "
+                         "that fit, serve and stream together; rank 0 prints")
     ap.add_argument("--chaos", default=None,
                     help="fault-injection spec, e.g. 'drop:1,flip:0.01,"
                          "straggle:3@0.2'; every 7th serve batch also runs "
@@ -234,11 +240,34 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     if args.mesh:
-        raise NotImplementedError(
-            '--mesh (impl="mesh") is not ported yet (the mesh substrate is '
-            "queue 1, slice 7 in ROADMAP.md)"
-        )
+        if args.fleet:
+            raise ValueError("--fleet serves single-process artifacts: drop --mesh")
+        if not (dist.is_initialized() and dist.get_world_size() == args.m):
+            # one process per machine: the counterpart of the reference
+            # forcing --m host devices for itself
+            from .ranks import RankPool
 
+            with RankPool(args.m, device=args.device) as pool:
+                return pool.run(_mesh_rank, list(sys.argv[1:] if argv is None else argv))[0]
+    return _serve(args)
+
+
+def _mesh_rank(argv) -> dict:
+    """``main(argv)`` on one rank of the ``--mesh`` process group; what it
+    measured, without the artifact (which stays on its rank)."""
+    out = main(argv)
+    report = out["report"]
+    return {"fit_s": out["fit_s"], "lat_ms": out["lat_ms"], "p50_ms": out["p50_ms"],
+            "p99_ms": out["p99_ms"], "growths": out["growths"], "n_updates": out["n_updates"],
+            "reload_dmu": out["reload_dmu"], "contract_ok": report.ok,
+            "contract": report.contract, "op_counts": report.op_counts,
+            "collectives": report.collectives, "wire_bits": out["art"].wire_bits,
+            "payload_bits": out["art"].payload_bits,
+            "integrity_bits": out["art"].integrity_bits, "lengths": out["art"].lengths,
+            "impl": out["art"].impl}
+
+
+def _serve(args) -> dict:
     fusion = args.fusion
     if fusion is None:
         fusion = "rbcm" if args.protocol == "poe" else "kl"
@@ -247,7 +276,7 @@ def main(argv=None) -> dict:
         protocol=args.protocol,
         scheme=args.scheme,
         fusion=fusion,
-        impl="batched",
+        impl="mesh" if args.mesh else "batched",
         gram_backend=args.gram_backend,
         gram_mode="dense" if args.protocol == "poe" else args.gram_mode,
         bits_per_sample=0 if args.protocol == "poe" else args.bits,
@@ -278,7 +307,24 @@ def main(argv=None) -> dict:
           f"crc {art.integrity_bits/1e3:.1f} kbit, "
           f"{art.rows_demoted} rows demoted)")
 
-    if args.artifact_dir:
+    reload_dmu = None
+    if args.artifact_dir and args.mesh:
+        # the checkpoint loads single-process; keep serving the mesh
+        # artifact, but verify the round trip
+        path = est.save(art, args.artifact_dir)
+        loaded = _retry("load", lambda: est.load(args.artifact_dir), attempts=args.retries)
+        Xv = rng.normal(size=(8, args.d)).astype(np.float32)
+        reload_dmu = float(torch.max(torch.abs(est.predict(art, Xv)[0]
+                                               - est.predict(loaded, Xv)[0])))
+        if not np.isfinite(reload_dmu) or reload_dmu > 1e-4:
+            print(f"FATAL: single-process reload of {path} diverges from the mesh "
+                  f"artifact (max |dmu| = {reload_dmu:.3e} > 1e-4) — refusing to serve",
+                  file=sys.stderr)
+            sys.exit(1)
+        print(f"artifact: saved {path}; single-process reload agrees to "
+              f"{reload_dmu:.1e} (serving the mesh copy); recorded config: "
+              f"{loaded.config.protocol}/{loaded.config.scheme}")
+    elif args.artifact_dir:
         path = est.save(art, args.artifact_dir)
         art = _retry("load", lambda: est.load(args.artifact_dir), attempts=args.retries)
         print(f"artifact: saved+reloaded {path} (serving the loaded copy)")
@@ -366,7 +412,8 @@ def main(argv=None) -> dict:
     return {"art": art, "est": est, "report": report, "fit_s": t_fit,
             "lat_ms": lat_ms, "p50_ms": float(p50), "p99_ms": float(p99),
             "request_launches": request_launches, "growths": growths,
-            "n_updates": n_updates, "n_over": n_over, "health": health}
+            "n_updates": n_updates, "n_over": n_over, "health": health,
+            "reload_dmu": reload_dmu}
 
 
 if __name__ == "__main__":

@@ -32,6 +32,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from _torch_threads import one_thread  # noqa: E402,F401
+from _torch_mesh import fit_predict  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import DGPConfig as RefConfig  # noqa: E402
@@ -39,6 +40,7 @@ from repro.core import DistributedGP as RefGP  # noqa: E402
 from repro.core.gp import GPParams as RefParams  # noqa: E402
 from repro_torch.core import DGPConfig, DistributedGP, GPParams  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
 
 
 M, D, N_PER = 5, 5, 14  # 70 training points over 5 machines
@@ -276,12 +278,16 @@ def test_cpu_path_launches_no_kernel():
 
 
 def test_unported_broadcast_paths_raise_naming_their_slice():
-    # only the mesh substrate is still pending; health() and the vq scheme
-    # are ported (tests/test_torch_faults.py, tests/test_torch_vq.py)
+    # every path is ported; on the mesh (one process per machine) broadcast
+    # refuses direct views, as the reference's mesh does, and in one
+    # process the mesh refuses to run; health() and the vq scheme:
+    # tests/test_torch_faults.py, tests/test_torch_vq.py
     est = DistributedGP(DGPConfig(protocol="broadcast", gram_mode="direct"), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="one process per machine"):
         DistributedGP(dataclasses.replace(est.config, impl="mesh"), device="cpu").fit(
             parts=PARTS)
+    with pytest.raises(NotImplementedError, match='gram_mode="nystrom" only'):
+        run_ranks(M, fit_predict, dict(protocol="broadcast", gram_mode="direct"), PARTS, XQ)
     with pytest.raises(TypeError, match="FittedProtocol"):
         est.health(None)
     with pytest.raises(ValueError, match="available mask has 3 entries"):

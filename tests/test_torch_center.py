@@ -26,6 +26,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from _torch_threads import one_thread  # noqa: E402,F401
+from _torch_mesh import fit_predict  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -38,6 +39,7 @@ from repro_torch.core import DGPConfig, DistributedGP, GPParams  # noqa: E402
 from repro_torch.core.gp import nlml_from_gram  # noqa: E402
 from repro_torch.core.protocols.center import CenterGP  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
 
 
 M, D, N_PER = 6, 6, 16  # 96 training points over 6 machines
@@ -233,12 +235,22 @@ def test_nonfinite_query_rows_get_the_prior(fits):
 
 
 def test_unported_paths_raise_naming_their_slice():
-    # only the mesh substrate is still pending; fault plans and the vq
-    # scheme are ported (tests/test_torch_faults.py, tests/test_torch_vq.py),
-    # and what they refuse they refuse as the reference does
+    # every DGPConfig value is ported: the mesh fits as the reference's does
+    # (its ledgers and answers are the batched fit's) on one process per
+    # machine, and in one process it refuses, as the reference does on too
+    # few devices; fault plans and the vq scheme (tests/test_torch_faults.py,
+    # tests/test_torch_vq.py) refuse what the reference refuses
     est = DistributedGP(device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="one process per machine"):
         DistributedGP(DGPConfig(impl="mesh"), device="cpu").fit(parts=PARTS)
+    got = run_ranks(M, fit_predict, {}, PARTS, XQ)[0]
+    art = est.fit(parts=PARTS)
+    mu, var = est.predict(art, XQ)
+    assert got["impl"] == "mesh" and got["lengths"] == art.lengths
+    assert (got["wire_bits"], got["payload_bits"], got["integrity_bits"]) == (
+        art.wire_bits, art.payload_bits, art.integrity_bits)
+    _close(got["mu"], mu.numpy(), 1e-6)
+    _close(got["var"], var.numpy(), 1e-6)
     with pytest.raises(ValueError, match="known protocols"):
         DGPConfig(protocol="nope")
     with pytest.raises(TypeError, match="FaultPlan"):

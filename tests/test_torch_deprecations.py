@@ -11,7 +11,9 @@ against the reference's (``repro.core.distributed_gp``), on the CPU.
   parts (m = 4, n = 96, d = 4, two Adam steps): the same ledgers, lengths
   and rates (integers, exactly) and predictions within 2e-4 of scale, the
   tolerance tests/test_torch_center.py holds trained fits to.
-* The mesh names raise, naming the slice that ports them.
+* The mesh names are the port's (``machine_mesh`` is ``machine_group``),
+  and the kwargs-form ``fit`` with ``impl="mesh"`` refuses in one process
+  and, on one process per machine, fits with the reference's ledgers.
 """
 import warnings
 
@@ -20,12 +22,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from _torch_threads import one_thread  # noqa: E402,F401
+from _torch_mesh import call  # noqa: E402
 import jax  # noqa: E402,F401
 
 from repro.core import distributed_gp as ref_dgp  # noqa: E402
 from repro_torch.core import distributed_gp as dgp  # noqa: E402
 from repro_torch.core.config import DGPConfig  # noqa: E402
-from repro_torch.core.protocols import base, broadcast, center, poe  # noqa: E402
+from repro_torch.core.protocols import base, broadcast, center, mesh, poe  # noqa: E402
+from repro_torch.launch.ranks import run_ranks  # noqa: E402
 
 M, N, D = 4, 96, 4
 DEPRECATED = ("quantize_to_center", "single_center_gp", "broadcast_gp", "poe_baseline",
@@ -143,7 +147,7 @@ def test_legacy_kwargs_fit_matches_the_reference_legacy_fit():
 @pytest.mark.parametrize("kw, exc, match", [
     ({"train_impl": "unrolled"}, ValueError, "train_impl 'unrolled'"),
     ({"impl": "host"}, ValueError, 'impl must be "batched" or "mesh"'),
-    ({"impl": "mesh"}, NotImplementedError, "slice 7"),
+    ({"impl": "mesh"}, ValueError, "one process per machine"),
     ({"gram_mode": "dense"}, ValueError, "dense"),
 ])
 def test_legacy_fit_refuses_what_it_cannot_honour(kw, exc, match):
@@ -156,8 +160,29 @@ def test_legacy_fit_refuses_what_it_cannot_honour(kw, exc, match):
 
 @pytest.mark.parametrize("name", ["broadcast_gp_mesh", "machine_mesh", "MESH_AXIS"])
 def test_mesh_names_raise_naming_their_slice(name):
-    assert hasattr(ref_dgp, name)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        getattr(dgp, name)
+    # the mesh is ported: each name the reference exports is the port's own
+    assert hasattr(ref_dgp, name) and name in dgp.__all__
+    got = getattr(dgp, name)
+    if name == "MESH_AXIS":
+        assert got == ref_dgp.MESH_AXIS == "machines"
+    else:
+        assert got is getattr(mesh, "machine_group" if name == "machine_mesh" else name)
     with pytest.raises(AttributeError):
         dgp.no_such_name  # noqa: B018
+
+
+def test_legacy_mesh_fit_has_the_reference_legacy_ledgers():
+    """The kwargs-form fit with impl="mesh" on four processes: the
+    reference's legacy fit's ledgers and lengths (the reference's mesh and
+    batched ledgers are equal, tests/test_conformance.py)."""
+    parts, Xt = _problem()
+    kw = dict(steps=2, gram_mode="direct", lr=0.05, max_bits=12)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        ref = ref_dgp.fit(parts, 8, "center", **kw)
+    got = run_ranks(M, call, "repro_torch.core.distributed_gp.fit", parts, 8, "center",
+                    impl="mesh", **kw, **CPU)
+    assert all(a["impl"] == "mesh" for a in got)
+    assert {(a["wire_bits"], a["payload_bits"], a["integrity_bits"]) for a in got} == {
+        (int(ref.wire_bits), int(ref.payload_bits), int(ref.integrity_bits))}
+    assert tuple(got[0]["lengths"]) == tuple(ref.lengths)

@@ -15,7 +15,12 @@ through each fusion's rows (tests/test_torch_epilogue.py checks that bound
 against a float64 evaluation); the fleet epilogue within the same bound
 applied per tenant.  The broadcast and poe paths serve a
 checkpoint on the card and on the CPU: 1e-4 of the output's scale, the
-fused serve's cancellation at this small, well-conditioned size.
+fused serve's cancellation at this small, well-conditioned size.  The
+mesh (``impl="mesh"``: 4 spawned ranks on the card) against the batched
+fit on the card: ledgers and every rank's bits exact, answers within 2e-3
+of scale (each rank fits its scheme alone, where the batched fit solves
+the machines' eigenproblems as one batch, and ten Adam steps follow), one
+all-reduce and no factorization a warm broadcast or poe request.
 """
 import os
 
@@ -24,6 +29,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_mesh import fit_predict, serve_structure  # noqa: E402
 from repro_torch.core import DGPConfig, DistributedGP  # noqa: E402
 from repro_torch.core import torch_scheme as TS  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
@@ -1003,3 +1009,64 @@ def test_gp_model_and_sparse_gp_through_the_gram_kernel(cuda):
     assert runtime.family("gram").launches == before + 5 * 5
     fit_c = train_sgpr(Xb, yb, 10, steps=5, seed=4, gram_backend="pallas")
     np.testing.assert_allclose(fit_g.Z.cpu().numpy(), fit_c.Z.numpy(), rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# impl="mesh": one process per machine on the card
+# --------------------------------------------------------------------------
+
+MESH_CFGS = {
+    "center": dict(protocol="center", bits_per_sample=24),
+    "broadcast": dict(protocol="broadcast", fusion="kl", bits_per_sample=24),
+    "poe": dict(protocol="poe", fusion="rbcm", bits_per_sample=0),
+}
+MESH_START = (0.2, -0.3, -1.5)
+
+
+@pytest.fixture(scope="module")
+def card_ranks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA CUDA card (the mesh ranks run on it)")
+    from repro_torch.launch.ranks import RankPool
+
+    with RankPool(4, device="cuda", timeout=300) as pool:
+        yield pool
+
+
+def _mesh_problem():
+    rng = np.random.default_rng(3)
+    W = rng.normal(size=(6, 2))
+    X = rng.normal(size=(160, 6)).astype(np.float32)
+    y = (np.sin(X @ W[:, 0]) + 0.4 * (X @ W[:, 1])).astype(np.float32)
+    parts = [(X[j::4], y[j::4]) for j in range(4)]
+    return parts, rng.normal(size=(32, 6)).astype(np.float32)
+
+
+@pytest.mark.parametrize("protocol", list(MESH_CFGS))
+def test_mesh_on_the_card_matches_the_batched_fit(cuda, card_ranks, protocol):
+    parts, Xq = _mesh_problem()
+    cfg = dict(steps=10, **MESH_CFGS[protocol])
+    outs = card_ranks.run(fit_predict, cfg, parts, Xq, MESH_START, device="cuda")
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o["mu"], outs[0]["mu"])
+        np.testing.assert_array_equal(o["var"], outs[0]["var"])
+    est = DistributedGP(DGPConfig(**cfg), device=cuda)
+    from repro_torch.core import GPParams
+
+    art = est.fit(parts=parts, params=GPParams(*(torch.tensor(v) for v in MESH_START)))
+    mu, var = (a.cpu().numpy() for a in est.predict(art, Xq))
+    o = outs[0]
+    assert (o["wire_bits"], o["payload_bits"], o["integrity_bits"]) == (
+        art.wire_bits, art.payload_bits, art.integrity_bits)
+    for got, want in ((o["mu"], mu), (o["var"], var)):
+        np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3 * max(1.0, np.abs(want).max()))
+
+
+@pytest.mark.parametrize("protocol", ["broadcast", "poe"])
+def test_mesh_on_the_card_serves_with_one_allreduce(cuda, card_ranks, protocol):
+    parts, Xq = _mesh_problem()
+    for o in card_ranks.run(serve_structure, dict(steps=2, **MESH_CFGS[protocol]), parts, Xq,
+                            MESH_START, device="cuda"):
+        assert o["ok"], o["findings"]
+        assert o["collectives"] == {"c10d.allreduce_": {"count": 1, "bytes": 3 * 32 * 4}}
+        assert o["factorizations"] == {"cholesky": 0, "eigh": 0}

@@ -38,6 +38,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 from _torch_threads import one_thread  # noqa: E402,F401
+from _torch_mesh import fit_predict, mesh_pool, quantize  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -80,6 +81,7 @@ def _problem():
 
 
 PARTS, XQ = _problem()
+pool = mesh_pool(M)  # one process per machine, for the mesh cases
 
 
 def _close(got, want, rel, msg=""):
@@ -141,10 +143,12 @@ def test_per_symbol_scheme_on_the_reference_s_is_bitwise():
 
 
 @pytest.mark.parametrize("bits", [8, BITS, 40])
-def test_quantize_to_center_host(bits):
+def test_quantize_to_center_host(pool, bits):
     """Ledger, reconstructions and norms against the reference's host wire;
     the rates of each machine's scheme bitwise and its T within 1e-5 on
-    each package's own S; the batched impl's ledger equal."""
+    each package's own S; the batched and mesh impls' ledgers equal, and
+    the mesh's reconstructions within 5e-4 of the host's (the reference's
+    own mesh-vs-host tolerance)."""
     Xh, yh, wire, K, sq = quantize_to_center(PARTS, bits, impl="host", device="cpu")
     rXh, ryh, rwire, rK, rsq = ref_quantize(PARTS, bits, impl="host")
     assert (wire, K) == (rwire, rK)
@@ -159,8 +163,11 @@ def test_quantize_to_center_host(bits):
         ref = RefScheme(bits).fit(np.asarray(ref_second_moment(X)), rS_c)
         np.testing.assert_array_equal(got.rates, ref.rates)
         _close(got._tr.T, ref._tr.T, 1e-5)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="one process per machine"):
         quantize_to_center(PARTS, bits, impl="mesh", device="cpu")
+    mesh = pool.run(quantize, PARTS, bits)[0]
+    assert (mesh["wire_bits"], mesh["n_center"]) == (wire, K)
+    np.testing.assert_allclose(mesh["X"], Xh.numpy(), atol=5e-4)
 
 
 CENTER_MODES = ["nystrom", "direct", "nystrom_fitc"]
@@ -278,7 +285,7 @@ def test_host_vs_batched_gap_within_the_reference_s(kernel, bits, m, seed):
         assert gaps[1][i] <= 4 * gaps[0][i] + 1e-5 * scale[i], (name, gaps)
 
 
-def test_facade_dispatches_host_and_keeps_mesh_pending():
+def test_facade_dispatches_host_and_keeps_mesh_pending(pool):
     for protocol, cls in (("center", CenterGP), ("broadcast", HostBroadcastGP),
                           ("poe", HostPoEGP)):
         est = DistributedGP(DGPConfig(protocol=protocol, impl="host", steps=0), device="cpu")
@@ -288,5 +295,12 @@ def test_facade_dispatches_host_and_keeps_mesh_pending():
         assert mu.shape == (XQ.shape[0],) and bool((var > 0).all())
         with pytest.raises(TypeError, match="FittedProtocol"):
             est.save(model, "unused")
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    # the mesh is ported: in one process it refuses, on one process per
+    # machine it fits an artifact whose ledgers are the host oracle's
+    with pytest.raises(ValueError, match="one process per machine"):
         DistributedGP(DGPConfig(impl="mesh"), device="cpu").fit(parts=PARTS)
+    host = DistributedGP(DGPConfig(impl="host", steps=0), device="cpu").fit(parts=PARTS)
+    got = pool.run(fit_predict, dict(steps=0), PARTS, XQ)[0]
+    assert got["impl"] == "mesh"
+    assert (got["wire_bits"], got["payload_bits"], got["integrity_bits"]) == (
+        host.wire_bits, host.payload_bits, host.integrity_bits)

@@ -9,8 +9,11 @@ and exits 0 with its contract ok; the printed ledgers of a center fit equal
 the reference ``main``'s for the same flags and the reference's accounting
 formulas (with n % m == 0 and no flips the ledgers do not depend on how the
 machines were split), and after a streamed batch the integer ledgers are
-those formulas.  ``--mesh`` raises naming its slice.  Everything compared here is
-an integer or a printed string: no tolerance.
+those formulas.  ``--mesh`` spawns one process per machine and serves as
+the reference's ``--mesh`` does: the contract holds, the ledgers are the
+batched run's, and a checkpoint reloads single-process within the CLI's own
+1e-4.  Everything compared here is an integer or a printed string: no
+tolerance beyond that check.
 """
 import dataclasses
 import os
@@ -150,8 +153,25 @@ def test_fleet_mode_serves_tenants_without_reallocating(capsys):
 
 
 def test_mesh_raises_naming_its_slice():
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        serve_gp.main(TINY + CPU + ["--mesh"])
+    # --mesh is ported: the same call runs the center protocol on 4 spawned
+    # ranks, with the batched run's ledgers and the center's contract
+    res = serve_gp.main(TINY + CPU + ["--mesh"])
+    art = serve_gp.main(TINY + CPU)["art"]
+    assert res["impl"] == "mesh" and res["contract_ok"] and res["contract"] == "center-serve"
+    assert res["op_counts"]["cholesky"] == res["op_counts"]["eigh"] == 0
+    assert res["collectives"] == {} and len(res["lat_ms"]) == 7
+    assert (res["wire_bits"], res["payload_bits"], res["integrity_bits"]) == (
+        art.wire_bits, art.payload_bits, art.integrity_bits)
+
+
+def test_mesh_broadcast_serves_with_one_collective_and_reloads(tmp_path):
+    res = serve_gp.main(TINY + CPU + ["--mesh", "--protocol", "broadcast",
+                                      "--artifact-dir", str(tmp_path), "--stream-every", "3"])
+    assert res["contract_ok"] and res["contract"] == "mesh-serve"
+    assert res["collectives"]["c10d.allreduce_"]["count"] == 1
+    assert res["reload_dmu"] <= 1e-4 and res["n_updates"] == 2
+    with pytest.raises(ValueError, match="--fleet"):
+        serve_gp.main(TINY + CPU + ["--mesh", "--fleet"])
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
