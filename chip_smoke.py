@@ -52,7 +52,10 @@ into a pass):
    order (slot = kpos mod S), the bench shape partly filled (pos = 2047)
    and with fp32 K/V (the block kernel), a ragged S, rows with no valid key (an emptied row, window 0: the mean
    of V), window 1, a row whose valid slots all fall in one split and
-   hd = 512 (the block kernel); two launches give the same bits) — with
+   hd = 512 (the block kernel), and with gemma2's attention softcap (50)
+   at the full-width decode step's shapes (B = 4, q bf16: a wrapped local
+   ring of 4096, window 4096; a global cache of 8192 filled to 6003) and
+   on the block kernel; two launches give the same bits) — with
    the max abs / relative error against the stated tolerance, and the
    device time of the kernel, the plain version and one PyTorch call that
    computes the same function where there is one (``torch.matmul``,
@@ -214,6 +217,25 @@ into a pass):
       --mesh`` at ``--m 4 --bits 24 --n 400 --steps 10 --queries 8``.
       Prints the ranks' start-up seconds, their contexts' memory, fit
       seconds and request p50 / p99 (``[mesh]`` lines).
+   m. LLM decode serving (``decode_phase``): ``repro_torch.launch.serve.
+      main`` for the ten reduced architectures on the card (B = 4, prompt
+      32, gen 16), ``decode_attn`` launches from zero exactly 47 x the
+      family's count (``models.attn_launches_per_step``: one a self or
+      cross attention layer, none for xLSTM), one more step's first kernel
+      call held against ``decode_attn_plain`` on its own q / K / V within
+      1e-5 max|V|, each run teacher-forced again through the card and the
+      CPU from the card's weights (``repro_torch.analysis.lockstep``: logits
+      and state within 16 bf16 ulps of scale, kpos equal, greedy tokens
+      equal at a clear margin, router flips only at MoE near-ties; the
+      hybrid family's bf16 numbers reported only, and held in a float32 run
+      of both devices to ``HYBRID_F32_TOL``); then
+      gemma2-2b at full width (B = 4, prompt 32, gen 16, twice: ms/step,
+      tokens/s, peak card memory) and three warm steps under
+      ``torch.profiler`` (device time by kernel group against the host
+      clock); then a full-width state of max_len 8192 filled to 5999 (the
+      local rings wrapped), four steps, and at the last one a local and a
+      global layer's kernel call held against ``decode_attn_plain`` on the
+      step's own q / K / V within 1e-5 max|V| (``[decode]`` lines).
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1728,6 +1750,273 @@ def mesh_phase(dev, parts, batches, X_new, y_new, m=MESH_M, steps=150,
     return launches
 
 
+DECODE_ARGS = ("--batch", "4", "--prompt-len", "32", "--gen", "16")
+DECODE_FULL_LEN = 8192  # (c): the full-width state's max_len
+DECODE_FULL_POS = 6000  # (c): the first position stepped: the local rings (4096) have wrapped
+DECODE_FULL_STEPS = 4
+
+
+class _RecordedCalls:
+    """The first ``n`` ``decode_attn`` calls the decode step makes while
+    entered: operands, keywords and output, kept as clones (no host sync)."""
+
+    def __init__(self, n):
+        import repro_torch.models.decode as decode_mod
+
+        self.mod, self.real, self.n, self.seen = decode_mod, decode_mod.decode_attn, n, []
+
+    def __call__(self, q, K, V, kpos, pos, **kw):
+        import torch
+
+        out = self.real(q, K, V, kpos, pos, **kw)
+        if len(self.seen) < self.n:
+            self.seen.append((q.clone(), K.clone(), V.clone(), kpos.clone(),
+                              torch.as_tensor(pos).clone(), kw, out.clone()))
+        return out
+
+    def __enter__(self):
+        self.mod.decode_attn = self
+        return self.seen
+
+    def __exit__(self, *exc):
+        self.mod.decode_attn = self.real
+
+
+def _hold_recorded(tag, call):
+    """A recorded kernel call against ``decode_attn_plain`` on its own
+    operands, within 1e-5 max|V|."""
+    from repro_torch.kernels.decode_attn.ops import decode_attn_plain
+
+    q, K, V, kpos, pos, kw, got = call
+    want = decode_attn_plain(q, K, V, kpos, pos.to(K.device), **kw)
+    err, tol = float((got - want).abs().max()), 1e-5 * float(V.float().abs().max())
+    valid = int(((kpos >= 0) & (kpos <= pos.to(kpos.device))).sum(1).max())
+    print(f"[decode] {tag} at pos {int(pos)} (S {K.shape[1]}, {valid} valid slots a row, "
+          f"window {kw.get('window')}, softcap {kw.get('softcap')}): kernel vs plain "
+          f"max_abs_err {err:.3e} tol {tol:.3e}", flush=True)
+    check(err <= tol, f"decode {tag}: kernel and plain apart {err:.3e} > {tol:.3e}")
+
+
+def _decode_launch_check(tag, counts, want):
+    """Launches from zero of one decode run: ``decode_attn`` exactly ``want``,
+    every other kernel none."""
+    others = {k: v for k, v in counts.items() if k != "decode_attn" and v}
+    check(counts.get("decode_attn", 0) == want and not others,
+          f"decode {tag}: launches {counts}, want decode_attn {want} and nothing else")
+
+
+def decode_phase(dev, smi):
+    """4m: LLM decode serving, ``repro_torch.launch.serve``, every attention
+    layer through ``decode_attn`` (gemma2 with its softcap).
+
+    (a) ``serve.main`` for each of the ten reduced architectures on the card
+        (B = 4, prompt 32, gen 16: 47 steps), launches from zero exactly
+        47 x ``attn_launches_per_step``; one more step under
+        ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), its first
+        kernel call held against ``decode_attn_plain`` on its own operands
+        within 1e-5 max|V|; then the same 47 tokens teacher-forced through
+        the card and the CPU from the card's weights
+        (``repro_torch.analysis.lockstep``, bf16): no ``faults`` (logits and
+        state leaves within ``BF16_TOL`` of scale at every step, kpos equal,
+        greedy tokens equal at a clear margin; the hybrid family's numbers
+        reported, not held), router flips only at MoE near-ties; for the
+        hybrid family also a float32 run of both devices from the fp32
+        weights, held to ``HYBRID_F32_TOL``.
+    (b) gemma2-2b at full width (26 layers, d 2304, vocab 256000), B = 4,
+        prompt 32, gen 16, twice (the second timed warm): ms/step, tokens/s,
+        peak card memory, launches 47 x 26; three warm steps under
+        ``torch.profiler`` and one under the sync check.
+    (c) a full-width gemma2-2b state of max_len 8192 filled to position 5999
+        (random K/V, the local rings wrapped), four steps from position 6000;
+        at the last step, one local and one global layer's kernel call held
+        against ``decode_attn_plain`` on the step's own q/K/V within
+        1e-5 max|V|, launches 4 x 26.
+    Returns the path launches {tag: counts}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import lockstep as LS
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve
+    from repro_torch.models import (
+        attn_launches_per_step, cast_compute, decode_step, init_decode_state, init_model,
+    )
+
+    def card_vs_cpu(cfg, params, toks):
+        """``toks`` ((steps, B, 1)) through the CPU (ref) and the card from
+        ``params``: the report and the card's launches."""
+        B, steps = toks.shape[1], toks.shape[0]
+        ref = LS.PortSide(cfg, params, "cpu", B, steps)
+        got = LS.PortSide(cfg, params, dev, B, steps)
+        dtype = got.dtype
+        before = runtime.family("decode_attn").launches
+        rep = LS.lockstep(ref, got, toks, LS.tolerance(cfg, dtype),
+                          hold=LS.holds_numbers(cfg, dtype),
+                          route_tol=LS.ROUTE_TOL if dtype == torch.bfloat16 else None)
+        return rep, runtime.family("decode_attn").launches - before
+
+    path = {}
+    print(f"[decode] {smi}", flush=True)
+    # (a) the ten reduced architectures
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        torch.cuda.synchronize()
+        runtime.reset_launches()
+        out = serve.main(["--arch", arch, "--reduce", *DECODE_ARGS])
+        torch.cuda.synchronize()
+        counts = runtime.launches()
+        per_step = attn_launches_per_step(cfg)
+        _decode_launch_check(arch, counts, out["steps"] * per_step)
+        path[f"decode {arch}"] = counts
+        # one more step (position 47, the state's last) may not wait on the card
+        last_tok = torch.from_numpy(out["tokens"][:, -1:]).to(dev)
+        last_pos = torch.tensor(out["steps"], dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        with _RecordedCalls(1) as seen:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.no_grad():
+                    decode_step(out["params"], cfg, out["state"], last_tok, last_pos)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        check(len(seen) == min(1, per_step), f"decode {arch}: recorded {len(seen)} kernel calls")
+        for call in seen:
+            _hold_recorded(f"{arch} reduced, the step's first attention layer", call)
+        toks = np.concatenate([out["prompt"], out["tokens"][:, :-1]], axis=1)  # (B, 47)
+        check(toks.shape[1] == out["steps"], f"decode {arch}: token count")
+        toks = np.ascontiguousarray(toks.T[:, :, None])
+        runs = [("bf16", out["params"])]
+        if cfg.family == "hybrid":  # its bf16 numbers are not held: hold a float32 run
+            runs.append(("fp32", cast_compute(init_model(cfg, seed=0, device=dev),
+                                              torch.float32)))
+        for name, params in runs:
+            rep, launched = card_vs_cpu(cfg, params, toks)
+            print(f"[decode] {arch:20s} {cfg.family:6s} {name} {out['ms_per_step']:8.3f} ms/step"
+                  f"  decode_attn {per_step}/step  card vs CPU: logits "
+                  f"{max(rep['logit_err']):.3e} state {max(rep['state_err']):.3e} of scale "
+                  f"(worst {rep['worst_leaf'][0]}; tol {rep['tol']:.3e}, "
+                  f"{'held' if rep['hold'] else 'reported'})  flipped {rep['flipped']}  greedy "
+                  f"{rep['greedy_equal']}/{rep['greedy_clear']} at a clear margin", flush=True)
+            check(not LS.faults(rep), f"decode {arch} {name}: {LS.faults(rep)}")
+            check(launched == out["steps"] * per_step, f"decode {arch} {name}: lockstep launches")
+            check(not rep["flipped"] or cfg.family == "moe", f"decode {arch}: a flip outside MoE")
+            check(not rep["hold"] or rep["greedy_clear"] > 0,
+                  f"decode {arch} {name}: no greedy token at a clear margin")
+
+    # (b) gemma2-2b at full width
+    cfg = get_config("gemma2-2b")
+    full = None
+    for turn in ("cold", "warm"):
+        full = None  # free the previous turn's weights and state first
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 1e9  # the earlier phases' tensors still alive
+        runtime.reset_launches()
+        full = serve.main(["--arch", "gemma2-2b", *DECODE_ARGS])
+        torch.cuda.synchronize()
+        counts = runtime.launches()
+        _decode_launch_check(f"gemma2-2b full {turn}", counts, full["steps"] * cfg.num_layers)
+        path[f"decode gemma2-2b full {turn}"] = counts
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        B, steps = full["tokens"].shape[0], full["steps"]
+        print(f"[decode] gemma2-2b full width ({turn}): {full['ms_per_step']:.3f} ms/step, "
+              f"{B * steps / full['seconds']:.1f} tokens/s (B {B} x {steps} steps), peak "
+              f"{peak:.2f} GB ({peak - held:.2f} GB above the {held:.2f} GB held before the "
+              f"run), decode_attn {counts['decode_attn']}  [{smi}]", flush=True)
+        check(((full["tokens"] >= 0) & (full["tokens"] < cfg.vocab_size)).all(),
+              "decode gemma2-2b full: token ids out of range")
+
+    # where a full-width step's time goes: three warm steps under
+    # torch.profiler (CUDA activity, behind sentinel kernels that absorb the
+    # records it drops), device time by kernel group against the host clock
+    params = full["params"]
+    full = None
+    B = 4
+    state = init_decode_state(cfg, B, 64, dev)
+    positions = torch.arange(64, dtype=torch.int32, device=dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        decode_step(params, cfg, state, tok, positions[0])
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(256):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p in range(1, 4):
+                decode_step(params, cfg, state, tok, positions[p])
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+        torch.cuda.set_sync_debug_mode("error")  # a full-width step never waits on the card
+        try:
+            decode_step(params, cfg, state, tok, positions[4])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    lead = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    check(bool(lead), "decode profile: the profiler dropped every sentinel")
+    groups, names = {}, {}
+    for e in events[lead[-1] + 1:]:
+        low = e.name.lower()
+        g = ("decode_attn" if "decode_attn" in low else
+             "matmul" if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "xmma"))
+             else "other")
+        for table, key in ((groups, g), (names, e.name[:60])):
+            n, us = table.get(key, (0, 0.0))
+            table[key] = (n + 1, us + e.time_range.elapsed_us())
+    busy = sum(us for _, us in groups.values()) / 3 / 1e3
+    print(f"[decode] gemma2-2b full-width step (B {B}), profiled: host {wall:.3f} ms a step, "
+          f"device busy {busy:.3f} ms ({100 * busy / wall:.1f} %); per step by group: "
+          + ", ".join(f"{g} {n / 3:.0f} kernels {us / 3 / 1e3:.3f} ms"
+                      for g, (n, us) in sorted(groups.items())), flush=True)
+    top = sorted(names.items(), key=lambda kv: -kv[1][1])[:8]
+    print("[decode]   the step's top kernels by device time: " + "; ".join(
+        f"{k} x{n / 3:.0f} {us / 3 / 1e3:.3f} ms" for k, (n, us) in top), flush=True)
+
+    # (c) a wrapped full-width state: the kernel on the step's own q / K / V
+    state = init_decode_state(cfg, B, DECODE_FULL_LEN, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    filled = torch.arange(DECODE_FULL_POS, dtype=torch.int32, device=dev)
+    for kind, size in (("local", cfg.sliding_window), ("global", DECODE_FULL_LEN)):
+        c = state["pairs"][kind]
+        held_pos = filled[-size:] if size < DECODE_FULL_POS else filled
+        c["kpos"][:, :, held_pos.long() % size] = held_pos
+        for name in ("k", "v"):
+            c[name].copy_(torch.randn(c[name].shape, generator=gen, device=dev))
+    check(int(state["pairs"]["local"]["kpos"].min()) == DECODE_FULL_POS - cfg.sliding_window,
+          "decode full state: the local rings are not wrapped")
+    seen = []
+    positions = torch.arange(DECODE_FULL_LEN, dtype=torch.int32, device=dev)
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (B, 1), dtype=np.int32)).to(dev)
+    torch.cuda.synchronize()
+    runtime.reset_launches()
+    with torch.no_grad():
+        for p in range(DECODE_FULL_POS, DECODE_FULL_POS + DECODE_FULL_STEPS):
+            if p == DECODE_FULL_POS + DECODE_FULL_STEPS - 1:  # the step's first two calls
+                with _RecordedCalls(2) as seen:
+                    logits, state = decode_step(params, cfg, state, tok, positions[p])
+            else:
+                logits, state = decode_step(params, cfg, state, tok, positions[p])
+            tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None].to(torch.int32)
+    torch.cuda.synchronize()
+    counts = runtime.launches()
+    path["decode gemma2-2b wrapped state"] = counts
+    # the recording's own launches are the step's: 26 a step
+    _decode_launch_check("gemma2-2b wrapped state", counts, DECODE_FULL_STEPS * cfg.num_layers)
+    check(bool(torch.isfinite(logits.float()).all()), "decode full state: non-finite logits")
+    check(len(seen) == 2, f"decode full state: recorded {len(seen)} kernel calls")
+    for call, kind in zip(seen, ("local", "global")):  # pair 0: local then global
+        kw = call[5]
+        check(kw.get("softcap") == 50.0 and kw.get("window") == (
+            cfg.sliding_window if kind == "local" else None), f"decode full {kind}: {kw}")
+        _hold_recorded(f"full-width gemma2-2b {kind} layer", call)
+    return path
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
@@ -2395,7 +2684,7 @@ def main():
     # decode attention: within 1e-5 x max|V| of the plain version
     def attn_case(tag, B, S, KV, G, hd, pos, reps=0, window=None, q_dtype=torch.float32,
                   kv_dtype=torch.bfloat16, ring=False, empty=(), slot_order=False,
-                  one_split_row=None):
+                  one_split_row=None, softcap=None):
         q, K, V, kpos = decode_attn_operands(B, S, KV, G, hd, pos=pos, q_dtype=q_dtype,
                                              kv_dtype=kv_dtype, ring=ring, empty_rows=empty,
                                              seed=S + hd, device=dev, slot_order=slot_order)
@@ -2409,10 +2698,12 @@ def main():
         valid = (kpos >= 0) & (kpos <= pos)
         if window is not None:
             valid &= kpos > pos - window
-        got = decode_attn_cuda(q, K, V, kpos, pos, window=window)
+        if softcap is not None:  # scores of std ~64 at hd = 256: the cap bends most of them
+            q = (q.float() * 4).to(q_dtype)
+        got = decode_attn_cuda(q, K, V, kpos, pos, window=window, softcap=softcap)
         again = decode_attn_cuda(q, K, V, kpos, torch.tensor(pos, dtype=torch.int32, device=dev),
-                                 window=window)
-        want = decode_attn_plain(q, K, V, kpos, pos, window=window)
+                                 window=window, softcap=softcap)
+        want = decode_attn_plain(q, K, V, kpos, pos, window=window, softcap=softcap)
         torch.cuda.synchronize()
         vmax = float(V.float().abs().max())
         err, tol = float((got - want).abs().max()), 1e-5 * vmax
@@ -2433,10 +2724,11 @@ def main():
             qh = q.reshape(B, KV * G, 1, hd).to(K.dtype)
             kh, vh = K.permute(0, 2, 1, 3), V.permute(0, 2, 1, 3)  # views
             mask = valid[:, None, None, :]
-            row["ms"] = device_ms(lambda: decode_attn_cuda(q, K, V, kpos, pos, window=window),
-                                  reps)
+            row["ms"] = device_ms(lambda: decode_attn_cuda(q, K, V, kpos, pos, window=window,
+                                                           softcap=softcap), reps)
             row["plain_ms"] = device_ms(
-                lambda: decode_attn_plain(q, K, V, kpos, pos, window=window), reps)
+                lambda: decode_attn_plain(q, K, V, kpos, pos, window=window, softcap=softcap),
+                reps)
             row["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
                 qh, kh, vh, attn_mask=mask, scale=1.0, enable_gqa=True), reps)
             # the valid slots' K and V rows once (a row with none valid: V only,
@@ -2450,13 +2742,14 @@ def main():
             row["bound_ms"], row["bound_by"] = bound(nbytes, 4 * k_rows * KV * G * hd)
             print(f"[time]   decode_attn   {tag:44s} kernel {row['ms']:.4f} ms  plain "
                   f"{row['plain_ms']:.4f} ms  F.scaled_dot_product_attention (q cast to "
-                  f"{str(K.dtype)[6:]}) {row['library_ms']:.4f} ms  bound {row['bound_ms']:.7f} "
+                  f"{str(K.dtype)[6:]}{', no cap' if softcap else ''}) "
+                  f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.7f} "
                   f"ms ({row['bound_by']})  {k_rows} valid slots", flush=True)
         results["decode_attn"].append(row)
         return row
 
-    main_attn = attn_case("bench: B=8 S=8192 KV=4 G=8 hd=128, K/V bf16", 8, 8192, 4, 8, 128,
-                          8191, reps=20)
+    attn_case("bench: B=8 S=8192 KV=4 G=8 hd=128, K/V bf16", 8, 8192, 4, 8, 128, 8191,
+              reps=20)
     attn_case("gemma2-2b local: KV=4 G=2 hd=256 w=4096 ring", 8, 8192, 4, 2, 256, 10000,
               reps=20, window=4096, ring=True)
     attn_case("ragged S=1000, f32 K/V, G=12 (two head chunks)", 2, 1000, 2, 12, 64, 900,
@@ -2472,6 +2765,18 @@ def main():
     attn_case("window 1: one valid key", 2, 1000, 4, 8, 128, 999, window=1)
     attn_case("row 2's valid slots in one split", 4, 8192, 4, 8, 128, 8191, one_split_row=2)
     attn_case("hd=512 bf16 (block kernel), G=4", 1, 700, 2, 4, 512, 650)
+    # the full-width gemma2-2b decode step (phase 4m's shapes: B = 4, q bf16,
+    # softcap 50): a local ring of 4096 that has wrapped, a global cache of
+    # 8192 filled to position 6003; the block kernel with the cap too
+    main_attn = attn_case("gemma2-2b step: local ring S=4096 w=4096 cap 50", 4, 4096, 4, 2,
+                          256, 6003, reps=20, window=4096, ring=True, slot_order=True,
+                          q_dtype=torch.bfloat16, softcap=50.0)
+    attn_case("gemma2-2b step: local ring S=4096 w=4096, no cap", 4, 4096, 4, 2, 256, 6003,
+              reps=20, window=4096, ring=True, slot_order=True, q_dtype=torch.bfloat16)
+    attn_case("gemma2-2b step: global S=8192 to pos 6003, cap 50", 4, 8192, 4, 2, 256, 6003,
+              reps=20, q_dtype=torch.bfloat16, softcap=50.0)
+    attn_case("cap 50, fp32 K/V (block kernel), window 300", 3, 1500, 2, 5, 64, 2000,
+              window=300, ring=True, kv_dtype=torch.float32, softcap=50.0)
 
     # ---- 4. the paths: Fig. 6 SARCOS, fit -> save -> load -> serve --------
     X_tr, y_tr, X_te, y_te = regression_dataset("sarcos", seed=0)
@@ -2992,6 +3297,11 @@ def main():
     print(f"[mesh] {smi}", flush=True)
     path_launches.update(mesh_phase(dev, parts, batches, X_te[3100:3116], y_te[3100:3116]))
     print(f"[mesh] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # m. LLM decode serving: every attention layer through decode_attn
+    t0 = time.perf_counter()
+    path_launches.update(decode_phase(dev, smi))
+    print(f"[decode] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"

@@ -6,10 +6,14 @@
 // (ops.py) does after it: for batch b, KV head kv and query head g of that
 // KV head, out = sum_s w_s V[b, s, kv] with w the softmax over the S cache
 // slots of q . K[b, s, kv]; a slot is valid when kpos >= 0, kpos <= pos and,
-// with a window, kpos > pos - window.  The reference scores an invalid slot
-// with its finite NEG = -1e30, so in a row with a valid slot an invalid
-// slot's weight exp(NEG - m) is exactly 0 in fp32, and a row with no valid
-// slot gives the mean of V over its S slots (exp(NEG - NEG) = 1 each).
+// with a window, kpos > pos - window.  With a softcap (gemma2: 50) each
+// valid slot's score s becomes cap tanh(s / cap) before the softmax, as
+// repro/models/decode.py::_attn_decode caps the scores before it masks
+// them; an invalid slot is never scored, so the cap never meets the mask.
+// The reference scores an invalid slot with its finite NEG = -1e30, so in
+// a row with a valid slot an invalid slot's weight exp(NEG - m) is exactly
+// 0 in fp32, and a row with no valid slot gives the mean of V over its S
+// slots (exp(NEG - NEG) = 1 each).
 // q fp32 or bf16, K/V fp32 or bf16 (template parameters), every product
 // and sum in fp32.
 //
@@ -73,6 +77,12 @@ constexpr int WIN = NT * 8;   // kpos slots compacted per window
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// gemma2's attention logit softcap, cap tanh(s / cap), on a valid slot's
+// raw score (before the running max); with has_cap 0 the score as it was
+__device__ __forceinline__ float softcap(float s, int has_cap, float cap) {
+  return has_cap ? cap * tanhf(s / cap) : s;
+}
 
 // eight consecutive elements from a 16-byte aligned address
 __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
@@ -151,7 +161,7 @@ decode_attn_partial(int S, int KV, int G, int hd, int ngc, int sps,
                     const TKV* __restrict__ V,         // (B, S, KV, hd)
                     const int32_t* __restrict__ kpos,  // (B, S)
                     const int32_t* __restrict__ pos_ptr, int64_t pos_val,
-                    int has_window, int64_t window, int nsplit,
+                    int has_window, int64_t window, int has_cap, float cap, int nsplit,
                     float* __restrict__ part_acc,      // (B, KV, nsplit, G, hd)
                     float* __restrict__ part_m,        // (B, KV, nsplit, G)
                     float* __restrict__ part_d) {      // (B, KV, nsplit, G)
@@ -295,7 +305,8 @@ decode_attn_partial(int S, int KV, int G, int hd, int ngc, int sps,
       }
     }
 #pragma unroll
-    for (int g = 0; g < GC; ++g) ps[tid][g] = tid < nv ? s[g] : -INFINITY;
+    for (int g = 0; g < GC; ++g)
+      ps[tid][g] = tid < nv ? softcap(s[g], has_cap, cap) : -INFINITY;  // past nv: no weight
     __syncthreads();
 
     // the tile's max per head and the new running max
@@ -476,7 +487,8 @@ decode_attn_warp(int S, int KV, int G, int hd, int ngc, int sps,
                  const TQ* __restrict__ q, const __nv_bfloat16* __restrict__ K,
                  const __nv_bfloat16* __restrict__ V, const int32_t* __restrict__ kpos,
                  const int32_t* __restrict__ pos_ptr, int64_t pos_val, int has_window,
-                 int64_t window, int nsplit, float* __restrict__ part_acc,
+                 int64_t window, int has_cap, float cap, int nsplit,
+                 float* __restrict__ part_acc,
                  float* __restrict__ part_m, float* __restrict__ part_d) {
   constexpr int NTERM = std::is_same<TQ, __nv_bfloat16>::value ? 1 : 3;
   using bf16 = __nv_bfloat16;
@@ -622,8 +634,8 @@ decode_attn_warp(int S, int KV, int G, int hd, int ngc, int sps,
     for (int e = 0; e < 2; ++e) {
       const float lo = (cc[0][e] + cc[1][e]) + (cc[2][e] + cc[3][e]);
       const float hi = (cc[0][2 + e] + cc[1][2 + e]) + (cc[2][2 + e] + cc[3][2 + e]);
-      sc[e][0] = g < nv ? lo : -INFINITY;
-      sc[e][1] = g + 8 < nv ? hi : -INFINITY;
+      sc[e][0] = g < nv ? softcap(lo, has_cap, cap) : -INFINITY;
+      sc[e][1] = g + 8 < nv ? softcap(hi, has_cap, cap) : -INFINITY;
     }
     float p[2][2], al[2];
 #pragma unroll
@@ -810,17 +822,18 @@ template <typename TQ, typename TKV>
 cudaError_t launch(bool vec, dim3 grid, cudaStream_t st, int S, int KV, int G, int hd, int ngc,
                    int sps, const void* q, const void* K, const void* V, const int32_t* kpos,
                    const int32_t* pos_ptr, int64_t pos_val, int has_window, int64_t window,
-                   int nsplit, float* pa, float* pm, float* pd, float* out) {
+                   int has_cap, float cap, int nsplit, float* pa, float* pm, float* pd,
+                   float* out) {
   const TQ* q_ = static_cast<const TQ*>(q);
   const TKV *K_ = static_cast<const TKV*>(K), *V_ = static_cast<const TKV*>(V);
   if (vec)
     decode_attn_partial<TQ, TKV, true><<<grid, NT, 0, st>>>(
-        S, KV, G, hd, ngc, sps, q_, K_, V_, kpos, pos_ptr, pos_val, has_window, window, nsplit,
-        pa, pm, pd);
+        S, KV, G, hd, ngc, sps, q_, K_, V_, kpos, pos_ptr, pos_val, has_window, window, has_cap,
+        cap, nsplit, pa, pm, pd);
   else
     decode_attn_partial<TQ, TKV, false><<<grid, NT, 0, st>>>(
-        S, KV, G, hd, ngc, sps, q_, K_, V_, kpos, pos_ptr, pos_val, has_window, window, nsplit,
-        pa, pm, pd);
+        S, KV, G, hd, ngc, sps, q_, K_, V_, kpos, pos_ptr, pos_val, has_window, window, has_cap,
+        cap, nsplit, pa, pm, pd);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_attn_combine<TKV><<<grid.z * grid.y * G, NTC, 0, st>>>(S, KV, G, hd, nsplit, pa, pm,
@@ -832,8 +845,8 @@ template <typename TQ, int MT>
 cudaError_t launch_warp(dim3 grid, size_t smem, cudaStream_t st, int S, int KV, int G, int hd,
                         int ngc, int sps, const void* q, const void* K, const void* V,
                         const int32_t* kpos, const int32_t* pos_ptr, int64_t pos_val,
-                        int has_window, int64_t window, int nsplit, float* pa, float* pm,
-                        float* pd, float* out) {
+                        int has_window, int64_t window, int has_cap, float cap, int nsplit,
+                        float* pa, float* pm, float* pd, float* out) {
   static size_t allowed = 48 * 1024;
   if (smem > allowed) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -846,7 +859,7 @@ cudaError_t launch_warp(dim3 grid, size_t smem, cudaStream_t st, int S, int KV, 
   decode_attn_warp<TQ, MT><<<wgrid, 32 * NWW, smem, st>>>(
       S, KV, G, hd, ngc, sps, static_cast<const TQ*>(q),
       static_cast<const __nv_bfloat16*>(K), static_cast<const __nv_bfloat16*>(V), kpos,
-      pos_ptr, pos_val, has_window, window, nsplit, pa, pm, pd);
+      pos_ptr, pos_val, has_window, window, has_cap, cap, nsplit, pa, pm, pd);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_attn_combine<__nv_bfloat16><<<grid.z * grid.y * G, NTC, 0, st>>>(
@@ -867,7 +880,8 @@ extern "C" int repro_decode_attn(int q_bf16, int kv_bf16, int vec, int path, int
                                  int KV, int G, int hd, int nsplit, int sps,
                                  const void* q, const void* K, const void* V,
                                  const int32_t* kpos, const int32_t* pos_ptr, int64_t pos_val,
-                                 int has_window, int64_t window, float* part_acc,
+                                 int has_window, int64_t window, int has_cap, float cap,
+                                 float* part_acc,
                                  float* part_m, float* part_d, float* out, void* stream) {
   if (B <= 0 || KV <= 0 || G <= 0 || hd <= 0) return 0;  // an empty output
   if (S <= 0 || hd > HD_MAX || nsplit < 1 || sps < 1 || (int64_t)nsplit * sps < S ||
@@ -884,17 +898,19 @@ extern "C" int repro_decode_attn(int q_bf16, int kv_bf16, int vec, int path, int
     if (q_bf16)
       err = hd <= 128 ? launch_warp<__nv_bfloat16, 8>(grid, smem, st, S, KV, G, hd, ngc, sps,
                                                       q, K, V, kpos, pos_ptr, pos_val, has_window,
-                                                      window, nsplit, part_acc, part_m, part_d, out)
+                                                      window, has_cap, cap, nsplit, part_acc,
+                                                      part_m, part_d, out)
                       : launch_warp<__nv_bfloat16, 16>(grid, smem, st, S, KV, G, hd, ngc, sps,
                                                        q, K, V, kpos, pos_ptr, pos_val, has_window,
-                                                       window, nsplit, part_acc, part_m, part_d, out);
+                                                       window, has_cap, cap, nsplit, part_acc,
+                                                       part_m, part_d, out);
     else
       err = hd <= 128 ? launch_warp<float, 8>(grid, smem, st, S, KV, G, hd, ngc, sps, q, K, V,
-                                              kpos, pos_ptr, pos_val, has_window, window, nsplit,
-                                              part_acc, part_m, part_d, out)
+                                              kpos, pos_ptr, pos_val, has_window, window, has_cap,
+                                              cap, nsplit, part_acc, part_m, part_d, out)
                       : launch_warp<float, 16>(grid, smem, st, S, KV, G, hd, ngc, sps, q, K, V,
-                                               kpos, pos_ptr, pos_val, has_window, window, nsplit,
-                                               part_acc, part_m, part_d, out);
+                                               kpos, pos_ptr, pos_val, has_window, window, has_cap,
+                                               cap, nsplit, part_acc, part_m, part_d, out);
     return static_cast<int>(err);
   }
   if (path != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -902,18 +918,21 @@ extern "C" int repro_decode_attn(int q_bf16, int kv_bf16, int vec, int path, int
   if (q_bf16 && kv_bf16)
     err = launch<__nv_bfloat16, __nv_bfloat16>(v, grid, st, S, KV, G, hd, ngc, sps, q, K, V,
                                                kpos, pos_ptr, pos_val, has_window, window,
-                                               nsplit, part_acc, part_m, part_d, out);
+                                               has_cap, cap, nsplit, part_acc, part_m, part_d, out);
   else if (q_bf16)
     err = launch<__nv_bfloat16, float>(v, grid, st, S, KV, G, hd, ngc, sps, q, K, V, kpos,
-                                       pos_ptr, pos_val, has_window, window, nsplit, part_acc,
+                                       pos_ptr, pos_val, has_window, window, has_cap, cap,
+                                       nsplit, part_acc,
                                        part_m, part_d, out);
   else if (kv_bf16)
     err = launch<float, __nv_bfloat16>(v, grid, st, S, KV, G, hd, ngc, sps, q, K, V, kpos,
-                                       pos_ptr, pos_val, has_window, window, nsplit, part_acc,
+                                       pos_ptr, pos_val, has_window, window, has_cap, cap,
+                                       nsplit, part_acc,
                                        part_m, part_d, out);
   else
     err = launch<float, float>(v, grid, st, S, KV, G, hd, ngc, sps, q, K, V, kpos, pos_ptr,
-                               pos_val, has_window, window, nsplit, part_acc, part_m, part_d,
+                               pos_val, has_window, window, has_cap, cap, nsplit, part_acc,
+                               part_m, part_d,
                                out);
   return static_cast<int>(err);
 }

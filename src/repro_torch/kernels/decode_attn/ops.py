@@ -46,7 +46,8 @@ def _fn():
     if _FN is None:
         fn = build.library("decode_attn").repro_decode_attn
         i32, i64, ptr = ctypes.c_int, ctypes.c_int64, ctypes.c_void_p
-        fn.argtypes = ([i32] * 11 + [ptr] * 5 + [i64, i32, i64] + [ptr] * 5)
+        fn.argtypes = ([i32] * 11 + [ptr] * 5 + [i64, i32, i64, i32, ctypes.c_float]
+                       + [ptr] * 5)
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -107,13 +108,15 @@ def _need(cond: bool, msg: str):
 _TYPES = (torch.float32, torch.bfloat16)
 
 
-def decode_attn_cuda(q, K, V, kpos, pos, *, window=None):
+def decode_attn_cuda(q, K, V, kpos, pos, *, window=None, softcap=None):
     """Launch the Hopper kernel: q (B, KV, G, hd) and K, V (B, S, KV, hd)
     float32 or bfloat16 (K and V of one type), kpos (B, S) int32, all
     contiguous on one CUDA device; pos a Python int or a 0-d int32 tensor
     on that device (read by the kernel, never synchronized on); window None
-    or an int.  -> (B, KV, G, hd) fp32.  Raises on a bad operand or a
-    refused launch; never falls back."""
+    or an int; softcap None or a positive float (each valid slot's score
+    s becomes softcap tanh(s / softcap) before the softmax).  -> (B, KV,
+    G, hd) fp32.  Raises on a bad operand or a refused launch; never falls
+    back."""
     dev = q.device
     _need(dev.type == "cuda", f"q on {dev}, not a CUDA device")
     _need(q.dim() == 4 and K.dim() == 4 and V.dim() == 4 and kpos.dim() == 2,
@@ -142,6 +145,8 @@ def decode_attn_cuda(q, K, V, kpos, pos, *, window=None):
     else:
         pos_ptr, pos_val = None, int(pos)
     has_window, win = (0, 0) if window is None else (1, int(window))
+    _need(softcap is None or float(softcap) > 0, f"softcap must be positive, got {softcap}")
+    has_cap, cap = (0, 0.0) if softcap is None else (1, float(softcap))
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -157,7 +162,7 @@ def decode_attn_cuda(q, K, V, kpos, pos, *, window=None):
             int(q.dtype == bf), int(K.dtype == bf), int(vec), int(pl.path == "mma"), B, S, KV,
             G, hd, nsplit, pl.slots_per_split,
             q.data_ptr(), K.data_ptr(), V.data_ptr(), kpos.data_ptr(), pos_ptr, pos_val,
-            has_window, win, part_acc.data_ptr(), part_md[0].data_ptr(),
+            has_window, win, has_cap, cap, part_acc.data_ptr(), part_md[0].data_ptr(),
             part_md[1].data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -170,8 +175,9 @@ def decode_attn_cuda(q, K, V, kpos, pos, *, window=None):
 FAMILY = runtime.register("decode_attn", decode_attn_cuda, decode_attn_plain)
 
 
-def decode_attn(q, K, V, kpos, pos, *, window=None):
+def decode_attn(q, K, V, kpos, pos, *, window=None, softcap=None):
     """Single-token GQA attention over a ring KV cache: q (B, KV, G, hd),
     K/V (B, S, KV, hd), kpos (B, S) (-1 = empty slot), pos the current
-    position; optional sliding ``window``.  Returns (B, KV, G, hd) fp32."""
-    return runtime.choose("decode_attn", q)(q, K, V, kpos, pos, window=window)
+    position; optional sliding ``window`` and attention logit ``softcap``
+    (gemma2's).  Returns (B, KV, G, hd) fp32."""
+    return runtime.choose("decode_attn", q)(q, K, V, kpos, pos, window=window, softcap=softcap)

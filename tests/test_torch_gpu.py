@@ -1070,3 +1070,67 @@ def test_mesh_on_the_card_serves_with_one_allreduce(cuda, card_ranks, protocol):
         assert o["ok"], o["findings"]
         assert o["collectives"] == {"c10d.allreduce_": {"count": 1, "bytes": 3 * 32 * 4}}
         assert o["factorizations"] == {"cholesky": 0, "eigh": 0}
+
+
+# ---- LLM decode serving: the softcap, every architecture card vs CPU ---------------
+
+from repro_torch.configs import get_config, list_archs  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.analysis import lockstep as LS  # noqa: E402
+from repro_torch.models import attn_launches_per_step, cast_compute, init_model  # noqa: E402
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S,window,pos", [(4096, 4096, 9000),   # gemma2 local ring, wrapped
+                                          (8192, None, 6000)])  # a global cache, part filled
+def test_decode_attn_softcap_at_gemma2_shapes(cuda, q_dtype, S, window, pos):
+    B, KV, G, hd = 4, 4, 2, 256
+    q, K, V, kpos = decode_attn_operands(B, S, KV, G, hd, pos=pos, q_dtype=q_dtype,
+                                         ring=window is not None, seed=S + 7, device=cuda)
+    q = (q.float() * 4).to(q_dtype)  # scores of std ~64: the cap at 50 bends most of them
+    before = runtime.family("decode_attn").launches
+    got = decode_attn_cuda(q, K, V, kpos, pos, window=window, softcap=50.0)
+    again = decode_attn_cuda(q, K, V, kpos, torch.tensor(pos, dtype=torch.int32, device=cuda),
+                             window=window, softcap=50.0)
+    torch.cuda.synchronize()
+    assert runtime.family("decode_attn").launches == before + 2
+    assert torch.equal(got, again)
+    want = decode_attn_plain(q, K, V, kpos, pos, window=window, softcap=50.0)
+    tol = 1e-5 * float(V.float().abs().max())
+    assert bool(torch.isfinite(got).all()) and float((got - want).abs().max()) <= tol
+    uncapped = decode_attn_cuda(q, K, V, kpos, pos, window=window)
+    assert torch.equal(uncapped, decode_attn_cuda(q, K, V, kpos, pos, window=window,
+                                                  softcap=None))
+    assert float((uncapped - got).abs().max()) > 100 * tol
+
+
+def _dtypes_held(arch):
+    """bf16 for every architecture; float32 too for the hybrid family, whose
+    bf16 numbers are reported, not held (``repro_torch.analysis.lockstep``)."""
+    fp32 = get_config(arch).family == "hybrid"
+    return [(arch, torch.bfloat16)] + ([(arch, torch.float32)] if fp32 else [])
+
+
+@pytest.mark.parametrize("arch,dtype", [c for a in list_archs() for c in _dtypes_held(a)])
+def test_reduced_decode_on_card_matches_cpu(cuda, arch, dtype):
+    """Each reduced architecture teacher-forced on the card and on the CPU
+    from the same weights (``repro_torch.analysis.lockstep``): no
+    ``faults`` at the run's ``tolerance`` (logits and state leaves at every
+    step, kpos equal, greedy tokens equal at a clear margin), router flips
+    only at MoE near-ties, ``decode_attn`` launched once per attention
+    layer a step on the card; and ``serve`` on the card the same."""
+    cfg = get_config(arch).reduced()
+    params = cast_compute(init_model(cfg, seed=0, device=cuda), dtype)
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (40, 2, 1), dtype=np.int32)
+    ref = LS.PortSide(cfg, params, "cpu", 2, 40)
+    got = LS.PortSide(cfg, params, cuda, 2, 40)
+    before = runtime.family("decode_attn").launches
+    rep = LS.lockstep(ref, got, tokens, LS.tolerance(cfg, dtype), hold=LS.holds_numbers(cfg, dtype),
+                      route_tol=LS.ROUTE_TOL if dtype == torch.bfloat16 else None)
+    per_step = attn_launches_per_step(cfg)
+    assert runtime.family("decode_attn").launches - before == 40 * per_step
+    assert not LS.faults(rep), LS.faults(rep)
+    assert not rep["flipped"] or cfg.family == "moe"
+    assert not rep["hold"] or rep["greedy_clear"] > 0
+    out = serve(cfg, batch=2, prompt_len=8, gen=4, device=cuda, params=params)
+    assert out["attn_launches"] == out["steps"] * per_step

@@ -33,8 +33,14 @@ def test_no_jax_or_repro_import_in_the_package():
     assert PKG / "launch" / "fleet.py" in files and PKG / "core" / "fleet.py" in files
     assert PKG / "faults.py" in files and PKG / "core" / "rate_distortion.py" in files
     assert PKG / "launch" / "serve_gp.py" in files and PKG / "core" / "distributed_gp.py" in files
-    assert {PKG / "analysis" / f for f in ("contracts.py", "op_walk.py", "lint.py")} <= set(files)
+    assert {PKG / "analysis" / f for f in ("contracts.py", "op_walk.py", "lint.py",
+                                                "lockstep.py")} <= set(files)
     assert PKG / "examples" / "quickstart.py" in files
+    models = {"config", "layers", "moe", "ssm", "backbone", "decode", "steps", "weights"}
+    assert {PKG / "models" / f"{m}.py" for m in models} <= set(files)
+    assert {PKG / "launch" / "serve.py", PKG / "examples" / "serve_decode.py",
+            PKG / "configs" / "legacy" / "gemma2_2b.py"} <= set(files)
+    assert len(list((PKG / "configs" / "legacy").glob("*.py"))) == 11
     bad = [
         f"{f.relative_to(PKG)}: {name}"
         for f in files for name in _imports(f)
@@ -59,6 +65,15 @@ from repro_torch.faults import corrupt_words, drop_machine
 import repro_torch.launch.fleet
 import repro_torch.launch.serve_gp, repro_torch.core.distributed_gp
 import repro_torch.examples.quickstart, repro_torch.examples.distributed_gp_sarcos
+import repro_torch.launch.serve, repro_torch.examples.serve_decode
+from repro_torch.configs import get_config
+from repro_torch.models import cast_compute, decode_step, init_decode_state, init_model
+cfg = get_config("gemma2-2b").reduced()
+state = init_decode_state(cfg, 1, 4, "cpu")
+import torch
+logits, _ = decode_step(cast_compute(init_model(cfg, device="cpu")), cfg, state,
+                        torch.zeros((1, 1), dtype=torch.int32), torch.tensor(0, dtype=torch.int32))
+assert logits.shape == (1, 1, cfg.vocab_size)
 from repro_torch.analysis import check_contracts, lint
 rng = np.random.default_rng(0)
 X = rng.normal(size=(48, 4)).astype(np.float32)
@@ -112,3 +127,47 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         fleet_main(["--tenants", "2", "--requests", "2"])
     cpu_store = ArtifactStore(str(tmp_path), device="cpu")
     assert FleetServer(cpu_store, device="cpu").device.type == "cpu"
+
+
+def test_decode_serving_raises_without_cuda(monkeypatch):
+    from repro_torch.examples.serve_decode import main as example_main
+    from repro_torch.launch.serve import main as serve_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        serve_main(["--arch", "xlstm-125m", "--reduce", "--gen", "2", "--prompt-len", "2"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        example_main(["--gen", "2", "--prompt-len", "2"])
+
+
+def _model_call(name):
+    """A models entry point that places tensors, as f(**device) -> a tensor it made."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import (
+        init_decode_state, init_model, params_from_numpy, state_from_numpy,
+    )
+    from repro_torch.models.layers import Init
+
+    cfg = get_config("xlstm-125m").reduced()
+    leaf = np.ones(2, np.float32)
+    return {
+        "init_model": lambda **kw: init_model(cfg, **kw)["ln_f"]["scale"],
+        "init_decode_state": lambda **kw: init_decode_state(cfg, 1, 2, **kw)["pairs"]["slstm_c"],
+        "params_from_numpy": lambda **kw: params_from_numpy({"w": leaf}, **kw)["w"],
+        "state_from_numpy": lambda **kw: state_from_numpy({"a": {"k": leaf}}, **kw)["a"]["k"],
+        "Init": lambda **kw: Init(0, **kw).normal((2,)),
+    }[name]
+
+
+@pytest.mark.parametrize("name", ["init_model", "init_decode_state", "params_from_numpy",
+                                  "state_from_numpy", "Init"])
+def test_model_tensors_land_on_the_card_by_default(name, monkeypatch):
+    call = _model_call(name)
+    assert call(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert call().device.type == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        call()
