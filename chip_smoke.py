@@ -236,6 +236,20 @@ into a pass):
       local rings wrapped), four steps, and at the last one a local and a
       global layer's kernel call held against ``decode_attn_plain`` on the
       step's own q / K / V within 1e-5 max|V| (``[decode]`` lines).
+   n. LLM training (``train_phase``): one float32 train step of each of the
+      ten reduced architectures on the card and on the CPU
+      (``repro_torch.analysis.trainstep``: logits, loss, aux, every
+      gradient leaf within ``trainstep.limits`` of scale, each update its
+      own AdamW step in float64; bf16 reported); gemma2-2b at full width
+      and depth 2 the same, then its params saved and restored onto the
+      card bitwise; gemma2-2b at full width and depth (2.61 B params) 8
+      steps at batch 8 x seq 256 (s/step, tokens/s, peak card memory; the
+      losses finite and falling by ``TRAIN_FALL``; one step under
+      ``set_sync_debug_mode("error")``); the trained weights served through
+      ``decode_attn`` (26 launches a step, the last step's local and global
+      calls held against ``decode_attn_plain``); ``qcomm_bits=8`` on 2 gloo
+      ranks against exact training (tests/test_qcomm.py's criteria); the
+      training CLI and the LM-to-GP-head example (``[train]`` lines).
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -2017,6 +2031,336 @@ def decode_phase(dev, smi):
     return path
 
 
+TRAIN_CMP = (2, 64)  # (a), (b): batch and sequence of the card-vs-CPU step
+TRAIN_FULL = dict(batch=8, seq=256, steps=8)  # (c): launch/train.py's batch and seq
+TRAIN_LR = dict(peak_lr=1e-3, warmup=2, total_steps=8)
+TRAIN_SYNC_STEP = 3  # (c): the step run under set_sync_debug_mode("error")
+# (c): the full-width losses must fall by this much over the 8 steps (the H100
+# read 12.915 -> 7.064, a fall of 5.85; PERF.md §6 PR 28)
+TRAIN_FALL = 2.0
+TRAIN_SERVE = dict(batch=4, prompt_len=8, gen=8)  # (d)
+QCOMM_SHAPE = (8, 32)  # (e): tests/test_qcomm.py's batch
+TRAIN_CLI = ("--arch", "xlstm-125m", "--reduce", "--steps", "6", "--batch", "2", "--seq", "32",
+             "--ckpt-every", "6", "--log-every", "2")
+TRAIN_EXAMPLE = ("--steps", "20", "--batch", "4", "--seq", "64", "--feature-batches", "20",
+                 "--gp-steps", "30")
+
+
+def train_qcomm_rank(arch, bits, device, steps=8):
+    """(e) on one rank: ``arch`` (reduced) trained ``steps`` steps with
+    ``qcomm_bits=bits`` over the default group (bits 0: the plain step in
+    this process), on tests/test_qcomm.py's batch (seeded token ids, labels
+    the tokens); the losses and a digest of the final params."""
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis.lockstep import flat
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_train_state, make_train_step
+
+    cfg = get_config(arch).reduced()
+    params, opt = init_train_state(cfg, seed=0, device=device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, QCOMM_SHAPE).astype(np.int32)).to(device)
+    step = make_train_step(cfg, qcomm_bits=bits, **{**TRAIN_LR, "total_steps": 12})
+    losses = []
+    for _ in range(steps):
+        params, opt, m = step(params, opt, {"tokens": toks, "labels": toks})
+        losses.append(m["loss"])
+    return {"losses": [float(v) for v in losses],
+            "digest": torch.stack([p.double().sum() for _, p in sorted(flat(params).items())])}
+
+
+def train_phase(dev, smi, full=None, archs=None, cli=True, fall=TRAIN_FALL):
+    """4n: LLM training, ``repro_torch.models.make_train_step`` (AdamW in
+    place, remat per layer), on the card.  No hand-written kernel runs in
+    training (the reference's training path reaches no Pallas kernel);
+    the trained weights are served through ``decode_attn``.
+
+    (a) each reduced architecture (``archs``: all ten), one step from the
+        port's seed-0 weights on a seeded batch (B 2, S 64: the reduced
+        window of 32 bites) on the card and on the CPU in float32, TF32 off
+        (``analysis.trainstep``): logits, loss, MoE aux and every gradient
+        leaf within ``trainstep.limits`` of scale, each device's update its
+        own AdamW step (float64 from its gradients) within ``adamw_err``,
+        the two updates no more than one AdamW step apart; the same in
+        bf16, reported.  No kernel launched.
+    (b) ``full`` (gemma2-2b at full width) at depth 2 (train.py's
+        ``--layers 2``): (a)'s float32 step, card against CPU; then the
+        card's updated params ``save_checkpoint`` -> ``restore_checkpoint``
+        onto the card, bitwise.
+    (c) ``full`` at full depth: ``TRAIN_FULL`` (launch/train.py's batch 8,
+        seq 256; remat on, as the config has it), 8 steps of
+        ``make_train_step(peak_lr=1e-3, warmup=2, total_steps=8)`` on one
+        batch of ``lm_batch_stream`` repeated (its fresh batches are near
+        uniform over the vocabulary: 8 steps of them do not lower the loss):
+        s/step (synchronized), tokens/s, peak card memory; every loss and
+        gnorm finite, the losses falling by ``fall``; step
+        ``TRAIN_SYNC_STEP`` under ``set_sync_debug_mode("error")``; one
+        more warm step under ``torch.profiler`` (device time by kernel
+        group against the host clock).
+    (d) the trained weights cast and served by ``launch.serve.serve``
+        (``TRAIN_SERVE``): ``decode_attn`` launches exactly steps x the
+        layer count and nothing else; one more step's local and global
+        kernel calls held against ``decode_attn_plain`` within 1e-5 max|V|.
+    (e) ``qcomm_bits = 8`` on 2 gloo ranks on the card (reduced gemma2-2b,
+        batch (8, 32), 8 steps) against exact training: tests/test_qcomm.py's
+        criteria (first loss within rel 1e-3, last within 0.15, the exact
+        run falling by 0.5); both ranks the same params.
+    (f) ``python -m repro_torch.launch.train`` (``TRAIN_CLI``) and the
+        LM-to-GP-head example (``TRAIN_EXAMPLE``) on the card: exit 0,
+        ``metrics.csv`` and the checkpoint written, the example's SMSE
+        finite.
+    Returns the path launches {tag: counts}."""
+    import dataclasses
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.analysis import trainstep as TS
+    from repro_torch.analysis.lockstep import flat
+    from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.data import lm_batch_stream
+    from repro_torch.kernels import runtime
+    from repro_torch.launch import serve
+    from repro_torch.launch.ranks import RankPool
+    from repro_torch.models import (
+        cast_compute, decode_step, init_model, init_train_state, make_train_step, param_count,
+    )
+    from repro_torch.models.weights import _map
+
+    cuda = dev.type == "cuda"
+    cpu = torch.device("cpu")
+    full = get_config("gemma2-2b") if full is None else full
+    archs = list_archs() if archs is None else archs
+    path = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def numpy_init(cfg):
+        return _map(lambda _, t: t.numpy(), init_model(cfg, seed=0, device="cpu"))
+
+    def card_vs_cpu(cfg, dtype):
+        p_np, b_np = numpy_init(cfg), TS.batch_arrays(cfg, *TRAIN_CMP, seed=0)
+        t0 = time.perf_counter()
+        ref = TS.run_step(cfg, p_np, b_np, cpu, dtype)
+        t1 = time.perf_counter()
+        got = TS.run_step(cfg, p_np, b_np, dev, dtype)
+        sync()
+        return TS.compare(ref, got), got, (t1 - t0, time.perf_counter() - t1)
+
+    def line(rep):
+        return (f"logits {rep['logits']:.3e} loss {rep['loss']:.3e} aux {rep['aux']:.3e} grads "
+                f"{rep['grads']:.3e} ({rep['worst_leaf']}); each update its own AdamW step "
+                f"within {rep['adamw_err']:.2e} lr; the two {rep['update_lr']:.3f} lr apart at "
+                f"most, {rep['update_moved']:.2e} of elements > 1e-3 lr apart")
+
+    print(f"[train] {smi}", flush=True)
+    # (a) the ten reduced architectures, card against CPU
+    for arch in archs:
+        cfg = get_config(arch).reduced()
+        sync()
+        runtime.reset_launches()
+        rep, got, (t_cpu, t_dev) = card_vs_cpu(cfg, torch.float32)
+        rep16, _, _ = card_vs_cpu(cfg, torch.bfloat16)
+        sync()
+        counts = runtime.launches()
+        print(f"[train] {arch:20s} {cfg.family:6s} fp32 card vs CPU: {line(rep)}; loss "
+              f"{got['metrics']['loss']:.4f}; step + grads {t_dev:.2f} s card, {t_cpu:.2f} s "
+              f"CPU", flush=True)
+        print(f"[train] {arch:20s} {cfg.family:6s} bf16 card vs CPU (reported): {line(rep16)}",
+              flush=True)
+        check(not TS.faults(rep, cfg), f"train {arch}: {TS.faults(rep, cfg)}")
+        check(not any(counts.values()), f"train {arch}: a kernel launched: {counts}")
+
+    # (b) full width at depth 2: card against CPU, then the checkpoint on the card
+    cfg2 = dataclasses.replace(full, num_layers=2)
+    rep, got, (t_cpu, t_dev) = card_vs_cpu(cfg2, torch.float32)
+    n2 = sum(a.numel() for a in got["params"].values())
+    print(f"[train] {cfg2.name} full width, depth 2 ({n2 / 1e9:.3f} B "
+          f"params) fp32 card vs CPU: {line(rep)}; loss {got['metrics']['loss']:.4f}; "
+          f"{t_dev:.2f} s card, {t_cpu:.2f} s CPU", flush=True)
+    check(not TS.faults(rep, cfg2), f"train full depth 2: {TS.faults(rep, cfg2)}")
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    params = got["params"]  # the card's params after its step
+    t0 = time.perf_counter()
+    save_checkpoint(str(ckpt), 1, params)
+    t1 = time.perf_counter()
+    back = restore_checkpoint(str(ckpt), 1, params)
+    sync()
+    t2 = time.perf_counter()
+    check(latest_step(str(ckpt)) == 1 and all(
+        back[k].device == a.device and torch.equal(a, back[k]) for k, a in params.items()),
+        "train checkpoint: not bitwise on the card")
+    size = sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9
+    print(f"[train] checkpoint of the depth-2 params after the card's step ({size:.2f} GB): "
+          f"save {t1 - t0:.2f} s, restore onto the card {t2 - t1:.2f} s, {len(params)} leaves "
+          f"bitwise", flush=True)
+    params = back = got = None
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    # (c) full width, full depth: 8 steps at launch/train.py's batch and seq
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 1e9 if cuda else 0.0
+    params, opt = init_train_state(full, seed=0, device=dev)
+    n_params = param_count(params)
+    step = make_train_step(full, **TRAIN_LR)
+    # one batch of launch/train.py's stream, repeated: its fresh batches draw
+    # tokens near uniformly over the 256000-token vocabulary (each token's
+    # bigram successor is random), which 8 steps cannot fit
+    batch = next(lm_batch_stream(full.vocab_size, TRAIN_FULL["batch"], TRAIN_FULL["seq"],
+                                 seed=0, device=dev))
+    batches = [batch] * TRAIN_FULL["steps"]
+    state_gb = 16 * n_params / 1e9  # fp32 params, m, v and the grads
+    metrics, secs = [], []
+    for i, batch in enumerate(batches):
+        sync()
+        t0 = time.perf_counter()
+        if i == TRAIN_SYNC_STEP and cuda:  # a step never waits on the card
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            params, opt, m = step(params, opt, batch)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+        sync()
+        secs.append(time.perf_counter() - t0)
+        metrics.append(m)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    losses = [float(m["loss"]) for m in metrics]
+    gnorms = [float(m["grad_norm"]) for m in metrics]
+    warm = float(np.median(secs[1:]))
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+    print(f"[train] {full.name} full width, {full.num_layers} layers ({n_params / 1e9:.3f} B "
+          f"params, remat {full.remat}), batch {TRAIN_FULL['batch']} x seq "
+          f"{TRAIN_FULL['seq']}: s/step " + " ".join(f"{s:.3f}" for s in secs)
+          + f" (median of 2-8 {warm:.3f} s, {tokens / warm:.1f} tokens/s); peak card memory "
+          f"{peak:.2f} GB ({peak - held:.2f} GB above the {held:.2f} GB held before; the fp32 "
+          f"params, grads, m and v are {state_gb:.2f} GB)  [{smi}]", flush=True)
+    print("[train]   losses " + " ".join(f"{v:.4f}" for v in losses) + "; gnorm "
+          + " ".join(f"{v:.3f}" for v in gnorms), flush=True)
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          "train full: a non-finite loss or gnorm")
+    check(losses[-1] < losses[0] - fall,
+          f"train full: the loss fell {losses[0] - losses[-1]:.4f} < {fall}")
+    if cuda:  # where a warm step's time goes: one more step under torch.profiler
+        sync()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(256):  # sentinels: the profiler drops a trace's first records
+                torch.cuda._sleep(1)
+            sync()
+            t0 = time.perf_counter()
+            params, opt, _ = step(params, opt, batch)
+            sync()
+            wall = time.perf_counter() - t0
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        lead = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        check(bool(lead), "train profile: the profiler dropped every sentinel")
+        groups, names = {}, {}
+        for e in events[lead[-1] + 1:]:
+            low = e.name.lower()
+            g = ("matmul" if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "xmma"))
+                 else "reduce" if "reduce" in low else "elementwise" if "elementwise" in low
+                 else "other")
+            for table, key in ((groups, g), (names, e.name[:60])):
+                n, us = table.get(key, (0, 0.0))
+                table[key] = (n + 1, us + e.time_range.elapsed_us())
+        busy = sum(us for _, us in groups.values()) / 1e6
+        print(f"[train] a warm full-width step, profiled: host {wall:.3f} s, device busy "
+              f"{busy:.3f} s ({100 * busy / wall:.1f} %); by group: " + ", ".join(
+                  f"{g} {n} kernels {us / 1e3:.1f} ms" for g, (n, us) in sorted(groups.items())),
+              flush=True)
+        top = sorted(names.items(), key=lambda kv: -kv[1][1])[:6]
+        print("[train]   top kernels by device time: " + "; ".join(
+            f"{k} x{n} {us / 1e3:.1f} ms" for k, (n, us) in top), flush=True)
+
+    # (d) the trained weights, served: every attention layer through decode_attn
+    served = cast_compute(params)
+    params = opt = metrics = batches = None
+    if cuda:
+        torch.cuda.empty_cache()
+    sync()
+    runtime.reset_launches()
+    out = serve.serve(full, device=dev, params=served, **TRAIN_SERVE)
+    sync()
+    counts = runtime.launches()
+    _decode_launch_check("trained gemma2-2b", counts, out["steps"] * full.num_layers)
+    check(((out["tokens"] >= 0) & (out["tokens"] < full.vocab_size)).all(),
+          "train serve: token ids out of range")
+    last_tok = torch.from_numpy(out["tokens"][:, -1:]).to(dev)
+    last_pos = torch.tensor(out["steps"], dtype=torch.int32, device=dev)
+    with _RecordedCalls(2) as seen, torch.no_grad():
+        decode_step(served, full, out["state"], last_tok, last_pos)
+    sync()
+    counts = runtime.launches()
+    path["train serve gemma2-2b full"] = counts
+    check(counts.get("decode_attn", 0) == (out["steps"] + 1) * full.num_layers,
+          f"train serve: launches {counts}")
+    check(len(seen) == 2, f"train serve: recorded {len(seen)} kernel calls")
+    for call, kind in zip(seen, ("local", "global")):
+        _hold_recorded(f"trained full-width gemma2-2b, last step, {kind} layer", call)
+    print(f"[train] trained weights served (B {TRAIN_SERVE['batch']}, prompt "
+          f"{TRAIN_SERVE['prompt_len']}, gen {TRAIN_SERVE['gen']}): "
+          f"{1e3 * out['seconds'] / out['steps']:.3f} ms/step, decode_attn "
+          f"{counts.get('decode_attn', 0)} = {out['steps'] + 1} steps x {full.num_layers}",
+          flush=True)
+    served = out = None
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (e) the quantized gradient reduce on 2 gloo ranks, against exact training
+    t0 = time.perf_counter()
+    exact = train_qcomm_rank("gemma2-2b", 0, dev.type)
+    with RankPool(2, device=dev.type) as pool:
+        q8 = pool.run(train_qcomm_rank, "gemma2-2b", 8, dev.type, world=2)
+    e, q = exact["losses"], q8[0]["losses"]
+    print(f"[train] qcomm_bits 8 on 2 gloo ranks vs exact (reduced gemma2-2b, batch "
+          f"{QCOMM_SHAPE}): first {q[0]:.5f} / {e[0]:.5f}, last {q[-1]:.5f} / {e[-1]:.5f}; "
+          f"exact fell {e[0] - e[-1]:.4f}; {time.perf_counter() - t0:.1f} s", flush=True)
+    check(e[-1] < e[0] - 0.5, f"train qcomm: exact training fell {e[0] - e[-1]:.4f}")
+    check(abs(q[0] - e[0]) <= 1e-3 * abs(e[0]) and abs(q[-1] - e[-1]) < 0.15,
+          f"train qcomm: {q} against {e}")
+    check(q8[0]["losses"] == q8[1]["losses"]
+          and np.array_equal(q8[0]["digest"], q8[1]["digest"]),
+          "train qcomm: the ranks' params differ")
+
+    # (f) the training CLI and the LM-to-GP-head example, on the card
+    if cli:
+        work = ROOT / "build" / "chip_smoke_train_cli"
+        shutil.rmtree(work, ignore_errors=True)
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        dev_args = ("--device", dev.type)
+        for tag, argv in (("launch.train", ("-m", "repro_torch.launch.train", *TRAIN_CLI,
+                                            "--workdir", str(work), *dev_args)),
+                          ("train_lm_gp_head", ("-m", "repro_torch.examples.train_lm_gp_head",
+                                                *TRAIN_EXAMPLE, *dev_args))):
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, *argv], capture_output=True, text=True,
+                                 env=env, cwd=str(ROOT), timeout=600)
+            check(res.returncode == 0, f"train {tag}: exit {res.returncode}\n{res.stderr[-3000:]}")
+            tail = [ln for ln in res.stdout.splitlines() if ln.strip()][-3:]
+            print(f"[train] {tag}: exit 0 in {time.perf_counter() - t0:.1f} s; "
+                  + " | ".join(ln.strip() for ln in tail), flush=True)
+            if tag == "launch.train":
+                check((work / "metrics.csv").is_file() and latest_step(str(work)) == 6,
+                      "train CLI: no metrics.csv or checkpoint")
+            else:
+                smse = [float(ln.split("smse=")[1].split()[0]) for ln in res.stdout.splitlines()
+                        if "smse=" in ln]
+                check(len(smse) == 4 and all(np.isfinite(smse)), f"train example: {smse}")
+        shutil.rmtree(work, ignore_errors=True)
+    return path
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
@@ -3302,6 +3646,12 @@ def main():
     t0 = time.perf_counter()
     path_launches.update(decode_phase(dev, smi))
     print(f"[decode] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # n. LLM training: the ten archs card vs CPU, gemma2-2b at full width
+    # (8 steps, then served through decode_attn), the quantized reduce
+    t0 = time.perf_counter()
+    path_launches.update(train_phase(dev, smi))
+    print(f"[train] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"

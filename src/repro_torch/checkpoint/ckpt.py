@@ -1,6 +1,10 @@
-"""Artifact checkpoints — counterpart of ``repro/checkpoint/ckpt.py``.
+"""Checkpoints — counterpart of ``repro/checkpoint/ckpt.py``.
 
-An artifact is an npz of its arrays (``ckpt_<step>.npz``) beside a json of
+A tree checkpoint (:func:`save_checkpoint` / :func:`restore_checkpoint`,
+the LLM trainer's) is one npz, ``ckpt_<step>.npz``, keyed by each leaf's
+tree path joined by ``/`` (dict keys, NamedTuple field names, sequence
+indices), as the reference keys it: either package restores the other's
+file bit for bit.  An artifact is an npz of its arrays (``ckpt_<step>.npz``) beside a json of
 its static metadata (``meta_<step>.json``) holding a CRC32 of every array's
 bytes, written atomically.  The layout, the key names and the checksum are
 the reference's, so checkpoints load across the two packages in both
@@ -15,8 +19,10 @@ import zlib
 
 import numpy as np
 
-__all__ = ["CorruptCheckpointError", "array_checksum", "latest_step",
-           "save_artifact", "load_artifact_meta", "load_artifact_arrays"]
+import torch
+
+__all__ = ["CorruptCheckpointError", "array_checksum", "latest_step", "save_checkpoint",
+           "restore_checkpoint", "save_artifact", "load_artifact_meta", "load_artifact_arrays"]
 
 
 class CorruptCheckpointError(ValueError):
@@ -38,6 +44,73 @@ def latest_step(directory: str):
         if (m := re.match(r"ckpt_(\d+)\.npz$", f))
     ]
     return max(steps) if steps else None
+
+
+def _children(tree):
+    """(key, child) pairs of a tree node, or None for a leaf."""
+    if isinstance(tree, dict):
+        return sorted(tree.items())
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):  # a NamedTuple
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
+def _flatten(tree, prefix=()):
+    kids = _children(tree)
+    if kids is None:
+        yield "/".join(prefix), tree
+        return
+    for k, v in kids:
+        yield from _flatten(v, prefix + (str(k),))
+
+
+def _numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        # numpy has no bfloat16: such a leaf is saved as float32, which holds it exactly
+        return (leaf.float() if leaf.dtype == torch.bfloat16 else leaf).numpy()
+    return np.asarray(leaf)
+
+
+def save_checkpoint(directory: str, step: int, tree) -> str:
+    """``tree`` (nested dicts / NamedTuples / sequences of tensors or
+    arrays) as ``<directory>/ckpt_<step>.npz``, written to a temporary file
+    then renamed into place; returns the path."""
+    os.makedirs(directory, exist_ok=True)
+    flat = {k: _numpy(v) for k, v in _flatten(tree)}
+    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    tmp = path + ".tmp.npz"  # np.savez keeps the name when it ends in .npz
+    np.savez(tmp, **flat)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_checkpoint(directory: str, step: int, like_tree):
+    """The checkpoint of ``step`` in the structure of ``like_tree`` (its
+    values give only where each leaf goes): a tensor leaf comes back as a
+    tensor on that leaf's device (in its dtype where it is bfloat16, saved
+    as float32), any other leaf as the saved numpy array."""
+    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    with np.load(path) as data:
+
+        def build(tree, prefix):
+            kids = _children(tree)
+            if kids is None:
+                arr = data["/".join(prefix)]
+                if not isinstance(tree, torch.Tensor):
+                    return arr
+                out = torch.from_numpy(arr).to(tree.device)
+                return out.to(tree.dtype) if tree.dtype == torch.bfloat16 else out
+            vals = {k: build(v, prefix + (str(k),)) for k, v in kids}
+            if isinstance(tree, dict):
+                return {k: vals[k] for k in tree}
+            if hasattr(tree, "_fields"):
+                return type(tree)(**vals)
+            return type(tree)(vals[i] for i in range(len(tree)))
+
+        return build(like_tree, ())
 
 
 def save_artifact(directory: str, step: int, arrays: dict, meta: dict) -> str:

@@ -1,6 +1,8 @@
-"""Deterministic synthetic data — the GP side of ``repro/data/synthetic.py``,
-in numpy:
+"""Deterministic synthetic data — counterpart of ``repro/data/synthetic.py``:
 
+* ``lm_batch_stream`` — token batches for the LLM training driver (Zipf-ish
+  marginal + Markov bigram structure so the loss has signal), the
+  reference's numpy draws, so the token ids equal its bit for bit.
 * ``regression_dataset`` — GP-regression datasets statistically matched to
   the paper's benchmarks (same n / d / noise regime); a real file
   ``<data_dir>/<name>.npz`` is read instead when the caller names a
@@ -18,8 +20,11 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
-__all__ = ["DATASET_SPECS", "regression_dataset", "mnist_like_two_digits"]
+from ..core.protocols.base import resolve_device
+
+__all__ = ["DATASET_SPECS", "lm_batch_stream", "regression_dataset", "mnist_like_two_digits"]
 
 DATASET_SPECS = {
     # name: (n_train, n_test, d) as in the paper §6
@@ -28,6 +33,34 @@ DATASET_SPECS = {
     "abalone": (1000, 1044, 8),
 }
 _SALT = {"sarcos": 1, "kin40k": 2, "abalone": 3}
+
+
+def lm_batch_stream(vocab_size: int, batch: int, seq: int, seed: int = 0, device=None):
+    """Infinite deterministic stream of {tokens, labels} int32 (batch, seq)
+    batches on ``device`` (the card unless the caller names another; the
+    device is checked at the call, before the first batch)."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    # fixed random bigram preference: tok -> preferred successor
+    succ = rng.integers(0, vocab_size, size=vocab_size)
+
+    def stream():
+        step = 0
+        while True:
+            r = np.random.default_rng((seed, step))
+            toks = np.empty((batch, seq + 1), dtype=np.int64)
+            toks[:, 0] = r.zipf(1.3, size=batch) % vocab_size
+            noise = r.random((batch, seq))
+            rand_next = r.integers(0, vocab_size, size=(batch, seq))
+            for t in range(seq):
+                follow = succ[toks[:, t]]
+                toks[:, t + 1] = np.where(noise[:, t] < 0.65, follow, rand_next[:, t])
+            toks = torch.from_numpy(toks.astype(np.int32))
+            yield {"tokens": toks[:, :-1].contiguous().to(device),
+                   "labels": toks[:, 1:].contiguous().to(device)}
+            step += 1
+
+    return stream()
 
 
 def regression_dataset(name: str, seed: int = 0, data_dir: str | None = None):

@@ -1,5 +1,6 @@
-"""Parameter trees for all six architecture families — counterpart of
-``repro/models/backbone.py``'s init half.
+"""Backbone assembly for all six architecture families — counterpart of
+``repro/models/backbone.py``: the parameter trees and the training /
+prefill ``forward``.
 
 The tree, its leaf names and its stacked leading layer axes are the
 reference's, so a reference tree carries over leaf for leaf
@@ -13,19 +14,28 @@ reference's, so a reference tree carries over leaf for leaf
   encdec (whisper)   enc_layers, dec_layers (self-attn + cross-attn + MLP)
   vlm (internvl)     layers as dense, plus the patch projector
 
-The training / prefill ``forward`` has no counterpart here yet; the decode
-step is ``models/decode.py``.
+``forward`` applies the stacked layers in a Python loop where the
+reference scans: each stacked leaf is split into its layers with one
+``unbind(0)`` a call (the backward of ``leaf[i]`` would write a
+zero-filled copy of the whole stacked leaf for every layer).  Remat
+(``cfg.remat``) is ``torch.utils.checkpoint`` per layer, or per group of
+layers with ``cfg.remat_blocks``, as the reference's ``jax.checkpoint``
+per scan step or per inner scan.  The decode step is ``models/decode.py``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
-from .layers import Init, _init, init_attention, init_mlp, init_rmsnorm
-from .moe import init_moe
+from .layers import (Init, _init, attention_apply, init_attention, init_mlp, init_rmsnorm,
+                     mlp_apply, rmsnorm)
+from .moe import init_moe, moe_apply
 from . import ssm
 
-__all__ = ["COMPUTE_DTYPE", "init_model", "cast_compute", "param_count"]
+__all__ = ["COMPUTE_DTYPE", "init_model", "cast_compute", "param_count", "forward"]
 
 COMPUTE_DTYPE = torch.bfloat16
 
@@ -114,6 +124,76 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None):
     return params
 
 
+# --- block apply (train / prefill) --------------------------------------------
+
+def _dense_block_apply(bp, x, cfg, positions, window, is_causal=True):
+    h = attention_apply(bp["attn"], rmsnorm(bp["ln1"], x, cfg.norm_eps), cfg,
+                        positions=positions, layer_window=window, is_causal=is_causal)
+    x = x + h
+    h = mlp_apply(bp["mlp"], rmsnorm(bp["ln2"], x, cfg.norm_eps), cfg.activation)
+    return x + h
+
+
+def _moe_block_apply(bp, x, cfg, positions):
+    h = attention_apply(bp["attn"], rmsnorm(bp["ln1"], x, cfg.norm_eps), cfg,
+                        positions=positions, layer_window=cfg.sliding_window)
+    x = x + h
+    h, aux = moe_apply(bp["moe"], rmsnorm(bp["ln2"], x, cfg.norm_eps), cfg)
+    aux = {k: v for k, v in aux.items() if k != "router_probs"}  # the reference's three
+    return x + h, aux
+
+
+def _xlstm_pair_apply(bp, x, cfg):
+    h, _ = ssm.mlstm_apply(bp["mlstm"], rmsnorm(bp["ln_m"], x, cfg.norm_eps), cfg)
+    x = x + h
+    h, _ = ssm.slstm_apply(bp["slstm"], rmsnorm(bp["ln_s"], x, cfg.norm_eps), cfg)
+    return x + h
+
+
+def _mamba_block_apply(bp, x, cfg):
+    h, _, _ = ssm.mamba2_apply(bp["mamba"], rmsnorm(bp["ln1"], x, cfg.norm_eps), cfg)
+    return x + h
+
+
+def _unstack(tree):
+    """A stacked tree as the list of its layers: each leaf split by one
+    ``unbind(0)``."""
+    parts = {k: _unstack(v) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _scan(fn, x, stacked, cfg, with_aux=False):
+    """``fn(layer_params, h) -> h`` (``-> (h, aux)`` with ``with_aux``) over
+    the layers of ``stacked`` in order.  With ``cfg.remat`` each layer is
+    recomputed in the backward (``torch.utils.checkpoint``); with
+    ``cfg.remat_blocks`` = g dividing the L layers (g < L), each group of
+    L / g layers instead.  Returns h, or (h, [aux of each layer])."""
+    layers = _unstack(stacked)
+    L, groups = len(layers), cfg.remat_blocks
+    auxs = []
+
+    def run(group, h):
+        out = []
+        for lp in group:
+            r = fn(lp, h)
+            h = r[0] if with_aux else r
+            out.append(r[1] if with_aux else None)
+        return h, out
+
+    if cfg.remat and groups and L % groups == 0 and groups < L:
+        inner = L // groups
+        for g in range(groups):
+            x, out = checkpoint(run, layers[g * inner:(g + 1) * inner], x, use_reentrant=False)
+            auxs += out
+    else:
+        for lp in layers:
+            x, out = (checkpoint(run, [lp], x, use_reentrant=False) if cfg.remat
+                      else run([lp], x))
+            auxs += out
+    return (x, auxs) if with_aux else x
+
+
 _KEEP_F32 = {"scale", "a_log", "dt_bias", "norm_scale", "bias"}
 
 
@@ -138,6 +218,82 @@ def cast_compute(params, dtype=None):
         return out
 
     return cast(params)
+
+
+def forward(params, cfg: ModelConfig, batch: dict, kind: str = "train", dtype=None):
+    """-> (logits (B, S, V) in the compute dtype, aux).  ``params``: the
+    fp32 master tree, cast inside (``dtype``, ``COMPUTE_DTYPE`` by
+    default), so gradients reach it; batch: tokens (B, S) integer, plus
+    enc_embed (B, enc_seq, D) for encdec and patch_embed (B, num_patches,
+    D) for vlm.  aux: the MoE family's load_balance, router_z and
+    drop_frac, each averaged over the layers; empty otherwise.  ``kind``
+    ("train" or "prefill") computes the same, as the reference's."""
+    dtype = COMPUTE_DTYPE if dtype is None else dtype
+    params = cast_compute(params, dtype)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    eps = cfg.norm_eps
+    x = params["embedding"][tokens]
+    if cfg.embed_scale:
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(dtype))
+    aux = {}
+
+    if cfg.family == "vlm":
+        patches = batch["patch_embed"].to(dtype) @ params["patch_proj"]
+        x = torch.cat([patches, x], dim=1)
+    S_eff = x.shape[1]
+    positions = torch.arange(S_eff, device=x.device)[None].expand(B, S_eff)
+
+    if cfg.family in ("dense", "vlm"):
+        if cfg.local_global_alternating:
+            def pair(bp, h):
+                h = _dense_block_apply(bp["local"], h, cfg, positions, cfg.sliding_window)
+                return _dense_block_apply(bp["global"], h, cfg, positions, None)
+            x = _scan(pair, x, params["layers"], cfg)
+        else:
+            x = _scan(lambda bp, h: _dense_block_apply(bp, h, cfg, positions, cfg.sliding_window),
+                      x, params["layers"], cfg)
+    elif cfg.family == "moe":
+        x, auxs = _scan(lambda bp, h: _moe_block_apply(bp, h, cfg, positions), x,
+                        params["layers"], cfg, with_aux=True)
+        aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
+    elif cfg.family == "ssm":
+        x = _scan(lambda bp, h: _xlstm_pair_apply(bp, h, cfg), x, params["layers"], cfg)
+    elif cfg.family == "hybrid":
+        shared = params["shared_attn"]
+
+        def superblock(bp, h):
+            h = _scan(lambda mp, hh: _mamba_block_apply(mp, hh, cfg), h, bp["mamba_layers"], cfg)
+            return _dense_block_apply(shared, h, cfg, positions, cfg.sliding_window)
+
+        x = _scan(superblock, x, params["blocks"], cfg)
+    elif cfg.family == "encdec":
+        enc = batch["enc_embed"].to(dtype) @ params["enc_pos_proj"]
+        enc_pos = torch.arange(enc.shape[1], device=x.device)[None].expand(B, enc.shape[1])
+        enc = _scan(lambda bp, h: _dense_block_apply(bp, h, cfg, enc_pos, None, is_causal=False),
+                    enc, params["enc_layers"], cfg)
+        enc = rmsnorm(params["ln_enc"], enc, eps)
+
+        def dec_block(bp, h):
+            h = h + attention_apply(bp["attn"], rmsnorm(bp["ln1"], h, eps), cfg,
+                                    positions=positions)
+            h = h + attention_apply(bp["xattn"], rmsnorm(bp["ln_x"], h, eps), cfg,
+                                    positions=positions, is_causal=False, x_kv=enc)
+            return h + mlp_apply(bp["mlp"], rmsnorm(bp["ln2"], h, eps), cfg.activation)
+
+        x = _scan(dec_block, x, params["dec_layers"], cfg)
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
+
+    x = rmsnorm(params["ln_f"], x, eps)
+    if cfg.family == "vlm":  # logits over the token positions only
+        x = x[:, -S:]
+    unembed = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
+    logits = x @ unembed
+    if cfg.final_logit_softcap is not None:
+        cap = cfg.final_logit_softcap
+        logits = cap * torch.tanh(logits.float() / cap).to(logits.dtype)
+    return logits, aux
 
 
 def param_count(params) -> int:

@@ -1,12 +1,16 @@
-"""Shared neural building blocks of the decode path — counterpart of
-``repro/models/layers.py``: norms, RoPE, the attention projections, the
-gated MLPs.
+"""Shared neural building blocks — counterpart of ``repro/models/layers.py``:
+norms, RoPE, attention (full / sliding / chunked online-softmax / decode
+over a cache), gated MLPs.
 
 Functional style over the carried param dict: ``init_*`` build param dicts
 with the reference's leaf names; the ``*_apply`` functions are pure.
-Compute dtype is bf16, accumulation fp32, params passed in as given.  The
-full-sequence attention (``attention_apply`` and its dense / chunked
-kernels) serves the training forward and has no counterpart here yet.
+Compute dtype is bf16, accumulation fp32, params passed in as given.
+``attention_apply`` is the training / prefill attention, written as the
+reference writes it: einsums and an fp32 softmax, masked scores at -1e30,
+the logit softcap before the mask (no library attention call applies
+gemma2's cap, and no TPU kernel computes this function).  The decode
+step's attention is ``models/decode.py``'s, through the ``decode_attn``
+kernel.
 
 Every ``init_*`` takes an :class:`Init` (a seeded ``torch.Generator`` on
 the target device, or the ``meta`` device for shapes alone) and ``lead``,
@@ -25,8 +29,12 @@ import torch.nn.functional as F
 
 from ..core.protocols.base import resolve_device
 
-__all__ = ["Init", "_init", "init_rmsnorm", "rmsnorm", "rope", "init_attention", "_softcap",
-           "_group_q", "init_mlp", "mlp_apply"]
+__all__ = ["ATTN_CHUNK", "ATTN_DENSE_MAX", "Init", "_init", "init_rmsnorm", "rmsnorm", "rope",
+           "init_attention", "_softcap", "_group_q", "_attn_dense", "_attn_chunked",
+           "attention_apply", "init_mlp", "mlp_apply"]
+
+ATTN_CHUNK = 1024  # KV chunk for memory-efficient attention
+ATTN_DENSE_MAX = 8192  # use plain dense attention up to this seq len
 
 
 class Init:
@@ -105,6 +113,118 @@ def _group_q(q, n_kv):
     """(B, S, H, hd) -> (B, S, KV, G, hd): head h = kv G + g."""
     B, S, H, hd = q.shape
     return q.reshape(B, S, n_kv, H // n_kv, hd)
+
+
+def _attn_dense(q, k, v, mask, softcap):
+    """q: (B, Sq, KV, G, hd); k / v: (B, Sk, KV, hd); mask broadcastable to
+    (B, KV, G, Sq, Sk).  Scores in fp32, the softmax's weights in v's
+    dtype.  -> (B, Sq, KV, G, hd)."""
+    scores = torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float())
+    scores = _softcap(scores, softcap)
+    scores = torch.where(mask, scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", w, v)
+
+
+def _attn_chunked(q, k, v, qpos, kpos, window, softcap, is_causal, chunk=None):
+    """Online-softmax attention over KV in chunks of ``chunk`` keys
+    (``ATTN_CHUNK`` when None; memory ~ Sq x chunk).  q: (B, Sq, KV, G, hd);
+    k / v: (B, Sk, KV, hd); qpos (B, Sq); kpos (B, Sk).  Keys are padded to
+    a chunk multiple with kpos = -1, which masks them."""
+    B, Sq, KV, G, hd = q.shape
+    Sk = k.shape[1]
+    C = min(ATTN_CHUNK if chunk is None else chunk, Sk)
+    pad = (-Sk) % C
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        kpos = F.pad(kpos, (0, pad), value=-1)
+        Sk += pad
+    qf = q.float()
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32, device=q.device)
+    m = torch.full((B, KV, G, Sq), -math.inf, dtype=torch.float32, device=q.device)
+    denom = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    qp = qpos[:, None, None, :, None]
+    for c0 in range(0, Sk, C):
+        kc, vc, pc = k[:, c0:c0 + C], v[:, c0:c0 + C], kpos[:, c0:c0 + C]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qf, kc.float())
+        s = _softcap(s, softcap)
+        p_ = pc[:, None, None, None, :]
+        valid = p_ >= 0  # padded keys are kpos == -1
+        if is_causal:
+            valid = valid & (qp >= p_)
+        if window is not None:
+            valid = valid & ((qp - p_) < window)
+        s = torch.where(valid, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        denom = denom * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskh->bkgqh", p, vc.float())
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / denom[..., None].clamp_min(1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B, Sq, KV, G, hd)
+
+
+def attention_apply(params, x, cfg, *, positions, layer_window: Optional[int] = None,
+                    is_causal: bool = True, kv_cache=None, cache_len=None, x_kv=None):
+    """General attention.
+
+    * self-attention, train / prefill: x (B, S, D), kv_cache None;
+    * cross-attention: x_kv (B, Sk, D) supplies K/V (no rope on either,
+      no mask when ``is_causal`` is False);
+    * decode: kv_cache = (K, V), each (B, Smax, KV, hd), cache_len an int
+      or 0-d tensor, x (B, S, D): the new rows go to cache_len.. (a new
+      cache: the given one is untouched); returns (out, new_cache).
+
+    A sequence whose S x Sk exceeds ``ATTN_DENSE_MAX``^2 takes the chunked
+    online softmax."""
+    B, S, D = x.shape
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    src = x if x_kv is None else x_kv
+    q = (x @ params["wq"]).reshape(B, S, Hq, hd)
+    k = (src @ params["wk"]).reshape(B, src.shape[1], Hkv, hd)
+    v = (src @ params["wv"]).reshape(B, src.shape[1], Hkv, hd)
+
+    if x_kv is None:  # rope only for self-attention
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions if kv_cache is None else positions[:, -1:], cfg.rope_theta)
+
+    new_cache = None
+    if kv_cache is not None:
+        K, V = kv_cache
+        Smax = K.shape[1]
+        # the start clamped so that the rows fit, as dynamic_update_slice does
+        start = torch.as_tensor(cache_len, device=K.device).clamp(0, Smax - S)
+        rows = start + torch.arange(S, device=K.device)
+        K = K.index_copy(1, rows, k.to(K.dtype))
+        V = V.index_copy(1, rows, v.to(V.dtype))
+        new_cache = (K, V)
+        kpos = torch.arange(Smax, device=K.device)[None, None, None, None, :]
+        mask = kpos <= cache_len
+        if layer_window is not None:
+            mask = mask & (kpos > (cache_len - layer_window))
+        out = _attn_dense(_group_q(q, Hkv), K, V, mask, cfg.attn_logit_softcap)
+    else:
+        qg = _group_q(q, Hkv)
+        Sk = k.shape[1]
+        kpos = torch.arange(Sk, device=x.device)[None].expand(B, Sk)
+        if S * Sk > ATTN_DENSE_MAX * ATTN_DENSE_MAX:
+            out = _attn_chunked(qg, k, v, positions, kpos, layer_window,
+                                cfg.attn_logit_softcap, is_causal)
+        else:
+            mask = torch.ones((B, 1, 1, S, Sk), dtype=torch.bool, device=x.device)
+            qp, kp = positions[:, None, None, :, None], kpos[:, None, None, None, :]
+            if is_causal:
+                mask = mask & (qp >= kp)
+            if layer_window is not None:
+                mask = mask & ((qp - kp) < layer_window)
+            out = _attn_dense(qg, k, v, mask, cfg.attn_logit_softcap)
+
+    out = out.reshape(B, S, Hq * hd).to(x.dtype)
+    proj = out @ params["wo"]
+    return (proj, new_cache) if kv_cache is not None else proj
 
 
 # --- MLP ---------------------------------------------------------------------

@@ -1,20 +1,22 @@
-"""Recurrent sequence-mixing blocks, one decode step each — counterpart of
-``repro/models/ssm.py``: the gated-linear-attention step (the shared
-engine), mLSTM + sLSTM (xlstm-125m, arXiv:2405.04517) and Mamba2/SSD
-(zamba2-2.7b, arXiv:2411.15242).
+"""Recurrent sequence-mixing blocks — counterpart of ``repro/models/ssm.py``:
+chunked gated linear attention (the shared engine) and its single step,
+mLSTM + sLSTM (xlstm-125m, arXiv:2405.04517) and Mamba2/SSD (zamba2-2.7b,
+arXiv:2411.15242), each as a full-sequence ``*_apply`` (training and
+prefill) and a one-position ``*_step`` (decode).
 
-The shared engine's step, with per-head scalar decay a = exp(log_a),
-log_a <= 0:
+The shared engine computes, exactly and in chunks of ``chunk`` steps, with
+per-step per-head scalar decay a = exp(log_a), log_a <= 0:
 
     C_t = a_t C_{t-1} + w_t k_t v_t^T          (state  (dk, dv) per head)
     y_t = C_t^T q_t
 
-The reference's deviations from the papers hold here too: the mLSTM input
-gate is a sigmoid gate; sLSTM keeps exponential gating with the m_t
-stabilizer.  The chunked full-sequence engine (``chunked_gla``) and the
-``*_apply`` functions serve the training forward and have no counterpart
-here yet; ``slstm_step`` is one step of the cell, as the reference's runs
-``slstm_apply``'s scan over one position.
+Within a chunk the contraction is a masked (q k^T)-style product; a Python
+loop over the chunks carries the state, where the reference scans.  Every
+exponential is of a non-positive number.  The reference's deviations from
+the papers hold here too: the mLSTM input gate is a sigmoid gate; sLSTM
+keeps exponential gating with the m_t stabilizer, one position at a time
+(``slstm_step`` is one step of the cell, as the reference's runs
+``slstm_apply``'s scan over one position).
 """
 from __future__ import annotations
 
@@ -25,9 +27,52 @@ import torch.nn.functional as F
 
 from .layers import Init, _init
 
-__all__ = ["gla_step", "init_mlstm", "_mlstm_qkv_gates", "mlstm_step", "init_slstm",
-           "_slstm_cell", "slstm_step", "init_mamba2", "_mamba_proj", "_causal_conv",
-           "mamba2_step"]
+__all__ = ["SSM_CHUNK", "chunked_gla", "gla_step", "init_mlstm", "_mlstm_qkv_gates",
+           "mlstm_apply", "mlstm_step", "init_slstm", "_slstm_cell", "slstm_apply", "slstm_step",
+           "init_mamba2", "_mamba_proj", "_causal_conv", "mamba2_apply", "mamba2_step"]
+
+SSM_CHUNK = 128
+
+
+def chunked_gla(q, k, v, log_a, w, state=None, chunk: int = SSM_CHUNK):
+    """q, k: (B, S, H, dk); v: (B, S, H, dv); log_a, w: (B, S, H); state
+    (B, H, dk, dv) fp32 (zeros when None).  S must be a multiple of the
+    chunk (min(chunk, S)).  Returns (y (B, S, H, dv) in v's dtype, the
+    final state)."""
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    C = min(chunk, S)
+    n = S // C
+    assert S % C == 0, "sequence length must be a chunk multiple"
+    if state is None:
+        state = torch.zeros((B, H, dk, dv), dtype=torch.float32, device=q.device)
+
+    def chunks(a, *tail):  # (B, S, H, *tail) -> (n, B, H, C, *tail) fp32
+        return a.reshape(B, n, C, H, *tail).transpose(2, 3).transpose(0, 1).float()
+
+    qc, kc, vc = chunks(q, dk), chunks(k, dk), chunks(v, dv)
+    lac, wc = chunks(log_a), chunks(w)
+    tri = torch.tril(torch.ones((C, C), dtype=torch.bool, device=q.device))  # s <= t
+    ys = []
+    for i in range(n):
+        qq, kk, vv, la, ww = qc[i], kc[i], vc[i], lac[i], wc[i]  # (B, H, C, dk) ... (B, H, C)
+        L = torch.cumsum(la, dim=-1)  # (B, H, C) inclusive
+        # intra-chunk: y[t] += sum_{s<=t} exp(L_t - L_s) w_s (q_t . k_s) v_s
+        scores = torch.einsum("bhtd,bhsd->bhts", qq, kk)
+        decay = torch.exp((L[..., :, None] - L[..., None, :]).clamp(-60.0, 0.0))
+        scores = scores * decay * ww[..., None, :]
+        scores = torch.where(tri, scores, 0.0)
+        y = torch.einsum("bhts,bhsv->bhtv", scores, vv)
+        # cross-chunk: y[t] += exp(L_t) q_t^T state
+        y = y + torch.exp(L)[..., None] * torch.einsum("bhtd,bhdv->bhtv", qq, state)
+        # state: st' = exp(L_end) st + sum_s exp(L_end - L_s) w_s k_s v_s^T
+        Lend = L[..., -1:]
+        wdec = torch.exp((Lend - L).clamp(-60.0, 0.0)) * ww  # (B, H, C)
+        state = torch.exp(Lend)[..., None] * state + torch.einsum(
+            "bhs,bhsd,bhsv->bhdv", wdec, kk, vv)
+        ys.append(y)
+    y = torch.stack(ys).transpose(0, 1).transpose(2, 3).reshape(B, S, H, dv)
+    return y.to(v.dtype), state
 
 
 def gla_step(q, k, v, log_a, w, state):
@@ -68,6 +113,15 @@ def _mlstm_qkv_gates(params, x, cfg):
     return q, k, v, log_f, w_i, og
 
 
+def mlstm_apply(params, x, cfg, state=None):
+    """x: (B, S, D); state (B, H, hd, hd) fp32 or None -> (out, state)."""
+    q, k, v, log_f, w_i, og = _mlstm_qkv_gates(params, x, cfg)
+    y, state = chunked_gla(q, k, v, log_f, w_i, state)
+    y = (og * y.float()).to(x.dtype)
+    B, S = x.shape[:2]
+    return y.reshape(B, S, -1) @ params["wo"], state
+
+
 def mlstm_step(params, x, cfg, state):
     """x: (B, 1, D); state (B, H, hd, hd) fp32."""
     q, k, v, log_f, w_i, og = _mlstm_qkv_gates(params, x, cfg)
@@ -102,6 +156,28 @@ def _slstm_cell(pre, carry, H, hd):
     nrm = f_p * nrm + i_p
     h = o * c / nrm.clamp_min(1.0)
     return (c, nrm, m_new, h)
+
+
+def slstm_apply(params, x, cfg, state=None):
+    """x: (B, S, D); state (c, n, m, h), each (B, H, hd) fp32, or None (m
+    at -1e30) -> (out, state).  The recurrence runs one position at a time
+    on ``_slstm_cell``."""
+    B, S, D = x.shape
+    H, hd = cfg.num_heads, cfg.hd
+    if state is None:
+        z = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
+        state = (z, z, torch.full((B, H, hd), -1e30, dtype=torch.float32, device=x.device), z)
+    pre_x = (x @ params["wi"]).reshape(B, S, 4, H, hd).float()
+    rmat = params["r_h"]
+    hs = []
+    for t in range(S):
+        # previous hidden (B, H, hd) -> 4 gate pre-activations, head-local
+        rec = torch.einsum("bhd,hdk->bhk", state[3].to(x.dtype), rmat)  # (B, H, 4 hd)
+        rec = rec.reshape(B, H, 4, hd).transpose(1, 2)
+        state = _slstm_cell(pre_x[:, t] + rec.float(), state, H, hd)
+        hs.append(state[3])
+    y = torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
+    return y @ params["wo"], state
 
 
 def slstm_step(params, x, cfg, state):
@@ -164,6 +240,30 @@ def _causal_conv(seq, w, state=None):
 
 def _softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def mamba2_apply(params, x, cfg, state=None, conv_state=None):
+    """x: (B, S, D); state (B, H, N, hd) fp32 or None; conv_state
+    (B, K-1, d_inner + 2N) or None -> (out, state, conv_state).  SSD is the
+    shared engine with q = C, k = B (shared across heads), v = x dt."""
+    B, S, D = x.shape
+    z, xin, Bm, Cm, dt, d_inner, H, N = _mamba_proj(params, x, cfg)
+    conv_in = torch.cat([xin, Bm, Cm], dim=-1)
+    conv_out, conv_state = _causal_conv(conv_in, params["conv_w"], conv_state)
+    xin, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
+    hd = d_inner // H
+    dt = _softplus(dt.float() + params["dt_bias"])  # (B, S, H)
+    log_a = -torch.exp(params["a_log"])[None, None] * dt  # <= 0
+    q = Cm[:, :, None, :].expand(B, S, H, N)
+    k = Bm[:, :, None, :].expand(B, S, H, N)
+    v = (xin.reshape(B, S, H, hd).float() * dt[..., None]).to(x.dtype)
+    y, state = chunked_gla(q, k, v, log_a, torch.ones_like(dt), state)
+    y = y.reshape(B, S, d_inner)
+    # gated RMS norm, then the out-projection
+    yf = y.float()
+    yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
+    y = (yf * params["norm_scale"]).to(x.dtype) * F.silu(z)
+    return y @ params["w_ssm_out"], state, conv_state
 
 
 def mamba2_step(params, x, cfg, state, conv_state):

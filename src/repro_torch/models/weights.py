@@ -31,7 +31,8 @@ def _tensor(a, device, dtype=None) -> torch.Tensor:
         a, dtype = a.astype(np.float32), dtype or torch.bfloat16
     if not a.flags.writeable:  # a read-only view (jax's np.asarray): torch wants its own
         a = a.copy()
-    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # always a copy: the tree is the caller's to update in place (training)
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
     return t if dtype is None else t.to(dtype)
 
 
@@ -48,7 +49,7 @@ def _map(fn, tree):
 def params_from_numpy(tree, device=None):
     """The reference's param tree (nested dicts of numpy arrays) as the
     port's, on ``device`` (the card unless the caller names another), leaf
-    dtypes kept."""
+    dtypes kept; each leaf a copy, never a view of the caller's array."""
     device = resolve_device(device)
     return _map(lambda _, a: _tensor(a, device), tree)
 

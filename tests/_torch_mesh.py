@@ -243,3 +243,30 @@ def rank_leaks(cfg: dict, parts, X_q):
     return {"clean": find_rank_leaks(art, allow), "differs": find_rank_leaks(differs, allow),
             "sliced": find_rank_leaks(sliced, allow),
             "findings": [(f.contract, f.rule) for f in report.findings]}
+
+
+def train_qcomm(arch: str, bits: int, steps: int = 8, device="cpu"):
+    """``arch`` (reduced) trained ``steps`` steps with ``qcomm_bits=bits``
+    over the default group (this rank's shard of the batch), on the batch
+    of ``tests/test_qcomm.py`` (rows of seeded token ids, labels the tokens
+    themselves); every step's loss (averaged over the ranks) and a digest of
+    the final params."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_train_state, make_train_step
+
+    cfg = get_config(arch).reduced()
+    params, opt = init_train_state(cfg, seed=0, device=device)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 32)).astype(np.int32)).to(device)
+    step = make_train_step(cfg, qcomm_bits=bits, peak_lr=1e-3, warmup=2, total_steps=12)
+    losses = []
+    for _ in range(steps):
+        params, opt, m = step(params, opt, {"tokens": toks, "labels": toks})
+        losses.append(float(m["loss"]))
+    return {"losses": losses,
+            "digest": torch.stack([p.double().sum() for p in _leaves(params)])}
+
+
+def _leaves(tree):
+    for _, v in sorted(tree.items()):
+        yield from _leaves(v) if isinstance(v, dict) else (v,)

@@ -1134,3 +1134,84 @@ def test_reduced_decode_on_card_matches_cpu(cuda, arch, dtype):
     assert not rep["hold"] or rep["greedy_clear"] > 0
     out = serve(cfg, batch=2, prompt_len=8, gen=4, device=cuda, params=params)
     assert out["attn_launches"] == out["steps"] * per_step
+
+
+import dataclasses  # noqa: E402
+
+from repro_torch.analysis import trainstep as TSTEP  # noqa: E402
+from repro_torch.analysis.lockstep import flat  # noqa: E402
+from repro_torch.checkpoint import restore_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.data import lm_batch_stream  # noqa: E402
+from repro_torch.models import init_train_state, make_train_step, param_count  # noqa: E402
+from repro_torch.models.weights import _map  # noqa: E402
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_reduced_train_step_on_card_matches_cpu(cuda, arch):
+    """One float32 train step of each reduced architecture on the card and
+    on the CPU from the same weights and batch (``analysis.trainstep``):
+    logits, loss, MoE aux and every gradient leaf within
+    ``trainstep.limits`` of scale, each update its own AdamW step (float64
+    from its gradients) within ``adamw_err``, the two at most one AdamW step
+    apart; no kernel launched."""
+    cfg = get_config(arch).reduced()
+    p_np = _map(lambda _, t: t.numpy(), init_model(cfg, seed=0, device="cpu"))
+    b_np = TSTEP.batch_arrays(cfg, 2, 64, seed=0)
+    ref = TSTEP.run_step(cfg, p_np, b_np, "cpu")
+    runtime.reset_launches()
+    got = TSTEP.run_step(cfg, p_np, b_np, cuda)
+    torch.cuda.synchronize()
+    assert not any(runtime.launches().values())
+    rep = TSTEP.compare(ref, got)
+    assert not TSTEP.faults(rep, cfg), (TSTEP.faults(rep, cfg), rep)
+
+
+def test_train_checkpoint_roundtrip_on_card(cuda, tmp_path):
+    cfg = get_config("gemma2-2b").reduced()
+    params, opt = init_train_state(cfg, seed=0, device=cuda)
+    batch = next(lm_batch_stream(cfg.vocab_size, 2, 32, device=cuda))
+    params, opt, _ = make_train_step(cfg, warmup=0)(params, opt, batch)
+    tree = {"params": params, "opt": opt}
+    save_checkpoint(str(tmp_path), 1, tree)
+    back = restore_checkpoint(str(tmp_path), 1, tree)
+    assert int(back["opt"].step) == 1
+    want = flat({"p": params, "m": opt.m, "v": opt.v})
+    got = flat({"p": back["params"], "m": back["opt"].m, "v": back["opt"].v})
+    assert set(want) == set(got)
+    for k in want:
+        assert got[k].device.type == "cuda" and torch.equal(got[k], want[k]), k
+
+
+def test_full_width_step_stays_within_its_state(cuda):
+    """A two-layer full-width step (gemma-7b's width, vocab 256000; the
+    layers stacked two deep) holds, above its params, m and v, no more than
+    its fp32 gradients, the bf16 cast, two bf16 copies of the stacked
+    layers (each layer's gradient and their stack: one ``unbind`` a leaf, no
+    ``leaf[i]`` whose backward writes a zero-filled stacked copy a layer),
+    AdamW's temporaries of the largest leaf (three) and the activations."""
+    cfg = dataclasses.replace(get_config("gemma-7b"), num_layers=2)
+    batch = next(lm_batch_stream(cfg.vocab_size, 1, 64, device=cuda))
+    step = make_train_step(cfg, warmup=0)
+
+    def peak_above_state():
+        torch.cuda.empty_cache()
+        params, opt = init_train_state(cfg, seed=0, device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(m["loss"])) and int(opt.step) == 1
+        return torch.cuda.max_memory_allocated() - base, params
+
+    above, params = peak_above_state()
+    P = 4 * param_count(params)
+    stacked = 2 * param_count(params["layers"])
+    largest = 4 * max(t.numel() for t in flat(params).values())
+    params = None
+    acts = 8 * 64 * cfg.vocab_size * 4 + 64 * 1024 ** 2  # a few fp32 logits-sized temporaries
+    bound = P + P // 2 + 2 * stacked + 3 * largest + acts
+    print(f"\ntwo-layer full-width step: {above / 1e9:.3f} GB above params, m and v; bound "
+          f"{bound / 1e9:.3f} GB (params {P / 1e9:.3f} GB, stacked layers bf16 "
+          f"{stacked / 1e9:.3f} GB)")
+    assert above <= bound, (above / 1e9, bound / 1e9, P / 1e9)

@@ -34,12 +34,15 @@ def test_no_jax_or_repro_import_in_the_package():
     assert PKG / "faults.py" in files and PKG / "core" / "rate_distortion.py" in files
     assert PKG / "launch" / "serve_gp.py" in files and PKG / "core" / "distributed_gp.py" in files
     assert {PKG / "analysis" / f for f in ("contracts.py", "op_walk.py", "lint.py",
-                                                "lockstep.py")} <= set(files)
+                                                "lockstep.py", "trainstep.py")} <= set(files)
     assert PKG / "examples" / "quickstart.py" in files
     models = {"config", "layers", "moe", "ssm", "backbone", "decode", "steps", "weights"}
     assert {PKG / "models" / f"{m}.py" for m in models} <= set(files)
     assert {PKG / "launch" / "serve.py", PKG / "examples" / "serve_decode.py",
             PKG / "configs" / "legacy" / "gemma2_2b.py"} <= set(files)
+    assert {PKG / "optim" / f for f in ("__init__.py", "adamw.py", "schedules.py")} <= set(files)
+    assert {PKG / "launch" / "train.py", PKG / "examples" / "train_lm_gp_head.py",
+            PKG / "checkpoint" / "ckpt.py", PKG / "data" / "synthetic.py"} <= set(files)
     assert len(list((PKG / "configs" / "legacy").glob("*.py"))) == 11
     bad = [
         f"{f.relative_to(PKG)}: {name}"
@@ -68,7 +71,13 @@ import repro_torch.examples.quickstart, repro_torch.examples.distributed_gp_sarc
 import repro_torch.launch.serve, repro_torch.examples.serve_decode
 from repro_torch.configs import get_config
 from repro_torch.models import cast_compute, decode_step, init_decode_state, init_model
+import repro_torch.optim, repro_torch.launch.train, repro_torch.examples.train_lm_gp_head
+from repro_torch.models import init_train_state, make_train_step
+from repro_torch.data import lm_batch_stream
 cfg = get_config("gemma2-2b").reduced()
+p, o = init_train_state(cfg, device="cpu")
+p, o, m = make_train_step(cfg)(p, o, next(lm_batch_stream(cfg.vocab_size, 2, 8, device="cpu")))
+assert bool(m["loss"] > 0) and int(o.step) == 1
 state = init_decode_state(cfg, 1, 4, "cpu")
 import torch
 logits, _ = decode_step(cast_compute(init_model(cfg, device="cpu")), cfg, state,
@@ -140,19 +149,56 @@ def test_decode_serving_raises_without_cuda(monkeypatch):
         example_main(["--gen", "2", "--prompt-len", "2"])
 
 
-def _model_call(name):
+def test_training_raises_without_cuda(monkeypatch):
+    from repro_torch.examples.train_lm_gp_head import main as example_main
+    from repro_torch.launch.train import main as train_main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train_main(["--arch", "xlstm-125m", "--reduce", "--steps", "1"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        example_main(["--steps", "1"])
+
+
+def test_restore_checkpoint_places_leaves_like_the_tree(tmp_path):
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+
+    tree = {"a": {"w": torch.arange(3.0)}, "s": torch.tensor(2, dtype=torch.int32)}
+    save_checkpoint(str(tmp_path), 1, tree)
+    devices = ["cpu"] + (["cuda"] if torch.cuda.is_available() else [])
+    for dev in devices:
+        like = {"a": {"w": torch.zeros(3, device=dev)},
+                "s": torch.zeros((), dtype=torch.int32, device=dev)}
+        back = restore_checkpoint(str(tmp_path), 1, like)
+        assert back["a"]["w"].device.type == back["s"].device.type == dev
+        assert torch.equal(back["a"]["w"].cpu(), tree["a"]["w"]) and int(back["s"]) == 2
+
+
+def _model_call(name, ckpt):
     """A models entry point that places tensors, as f(**device) -> a tensor it made."""
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.data import lm_batch_stream
     from repro_torch.models import (
-        init_decode_state, init_model, params_from_numpy, state_from_numpy,
+        init_decode_state, init_model, init_train_state, params_from_numpy, state_from_numpy,
     )
     from repro_torch.models.layers import Init
 
     cfg = get_config("xlstm-125m").reduced()
     leaf = np.ones(2, np.float32)
+    save_checkpoint(ckpt, 0, {"ln_f": {"scale": np.ones(cfg.d_model, np.float32)}})
+
+    def restore(**kw):  # the like tree made where the caller says: the leaf lands there
+        like = {"ln_f": init_model(cfg, **kw)["ln_f"]}
+        return restore_checkpoint(ckpt, 0, like)["ln_f"]["scale"]
+
     return {
+        "init_train_state": lambda **kw: init_train_state(cfg, **kw)[1].m["ln_f"]["scale"],
+        "lm_batch_stream": lambda **kw: next(lm_batch_stream(cfg.vocab_size, 1, 4,
+                                                             **kw))["tokens"],
+        "restore_checkpoint": restore,
         "init_model": lambda **kw: init_model(cfg, **kw)["ln_f"]["scale"],
         "init_decode_state": lambda **kw: init_decode_state(cfg, 1, 2, **kw)["pairs"]["slstm_c"],
         "params_from_numpy": lambda **kw: params_from_numpy({"w": leaf}, **kw)["w"],
@@ -162,9 +208,10 @@ def _model_call(name):
 
 
 @pytest.mark.parametrize("name", ["init_model", "init_decode_state", "params_from_numpy",
-                                  "state_from_numpy", "Init"])
-def test_model_tensors_land_on_the_card_by_default(name, monkeypatch):
-    call = _model_call(name)
+                                  "state_from_numpy", "Init", "init_train_state",
+                                  "lm_batch_stream", "restore_checkpoint"])
+def test_model_tensors_land_on_the_card_by_default(name, monkeypatch, tmp_path):
+    call = _model_call(name, str(tmp_path))
     assert call(device="cpu").device.type == "cpu"
     if torch.cuda.is_available():
         assert call().device.type == "cuda"
