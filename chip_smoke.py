@@ -250,6 +250,15 @@ into a pass):
       calls held against ``decode_attn_plain``); ``qcomm_bits=8`` on 2 gloo
       ranks against exact training (tests/test_qcomm.py's criteria); the
       training CLI and the LM-to-GP-head example (``[train]`` lines).
+   o. the dry run (``dryrun_phase``), each in a child process on a fake
+      process group: gemma2-2b at 4n-c's batch on a 1 x 1 mesh on fake
+      ``cuda`` tensors against one real step under the same cost counter
+      (matmul FLOPs equal, the predicted peak within ``DRY_PEAK_BAND`` of
+      the card's); one full-width decode step the same way (26
+      ``decode_attn`` custom-op calls traced and none launched, 26 launched
+      on the card, FLOPs equal); ``python -m repro_torch.launch.dryrun`` on
+      the reference's CLI test combo and gemma2-2b train_4k on both
+      production meshes (``[dryrun]`` lines).
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -259,6 +268,7 @@ the script fails before printing any result.  It imports nothing of JAX.
 import itertools
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -2361,6 +2371,235 @@ def train_phase(dev, smi, full=None, archs=None, cli=True, fall=TRAIN_FALL):
     return path
 
 
+# phase o: the dry run (repro_torch.launch.dryrun) against real steps ---------
+DRY_TRAIN = dict(batch=8, seq=256)  # 4n-c's setting (launch/train.py's batch and seq)
+DRY_DECODE = dict(batch=4, max_len=8192)  # 4m's full-width state
+# predicted peak / the card's max_memory_allocated above the memory held
+# before the step's tensors were made: read 0.999 (49.352 / 49.411 GB) on an
+# H100 80GB HBM3 at 700 W; the band leaves the caching allocator's rounding
+# and cuBLAS's workspace room
+DRY_PEAK_BAND = (0.95, 1.05)
+# the reference's CLI test, then gemma2-2b train_4k on both production meshes:
+# the two combos of --both-meshes as two processes side by side (~100 and
+# ~60 s of tracing on the card's host), so that the phase stays near 150 s
+DRY_CLI = (("--arch", "xlstm-125m", "--shape", "long_500k"),
+           ("--arch", "gemma2-2b", "--shape", "train_4k"),
+           ("--arch", "gemma2-2b", "--shape", "train_4k", "--multi-pod"))
+DRY_TIMEOUT = 900  # s, each child
+
+
+def _dry_child(shape, dev_type, reduced):
+    """The argv of a child process that runs one 1 x 1-mesh dry run
+    (``launch.dryrun.run_one``) of gemma2-2b (``.reduced()`` with
+    ``reduced``) at ``shape`` (name, seq, batch, kind) on fake ``dev_type``
+    tensors and prints its result as JSON, with the kernel launches the
+    trace made (none is expected)."""
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.kernels import runtime\n"
+        "from repro_torch.launch.dryrun import run_one\n"
+        "from repro_torch.models.config import ShapeConfig\n"
+        "runtime.reset_launches()\n"
+        "cfg = get_config('gemma2-2b')\n"
+        f"cfg = cfg.reduced() if {reduced!r} else cfg\n"
+        f"res = run_one('gemma2-2b', {shape[0]!r}, False, verbose=False, cfg=cfg, "
+        f"shape=ShapeConfig(*{tuple(shape)!r}), mesh_shape=(1, 1), device={dev_type!r})\n"
+        "res['launches'] = runtime.launches()\n"
+        "print(json.dumps(res))\n")
+    return [sys.executable, "-c", code]
+
+
+def dryrun_phase(dev, smi, cli=DRY_CLI, reduced=False):
+    """4o: ``repro_torch.launch.dryrun`` — the production mesh on a fake
+    process group, DTensors of fake local shards, the dispatch-level cost
+    counter (``repro_torch.roofline``), ``decode_attn`` as a custom op —
+    held against real steps on the card.  Every dry run runs in a child
+    process of its own: a fake default group never meets this process (or
+    4l's and 4n-e's gloo ranks).
+
+    (a) gemma2-2b at full width and depth, 4n-c's batch 8 x seq 256 (remat
+        as configured), a dry run on a 1 x 1 mesh on fake ``cuda`` tensors,
+        then one real step on the card under the same counter: per-device
+        matmul FLOPs equal; the predicted peak (``MemTracker``) against
+        ``max_memory_allocated`` above the memory held before the step's
+        tensors, within ``DRY_PEAK_BAND``; the roofline's compute, memory
+        and collective seconds beside the measured s/step (reported).  No
+        kernel launched by either.
+    (b) one full-width gemma2-2b decode step at batch 4 (max_len 8192) the
+        same two ways: the fake trace makes exactly 26 ``decode_attn``
+        custom-op calls and launches nothing; the real step launches 26;
+        FLOPs equal.
+    (c) ``python -m repro_torch.launch.dryrun`` for each of ``cli`` (the
+        reference's CLI test combo, and gemma2-2b train_4k on each
+        production mesh), started first, alongside (a) and (b): exit 0
+        and ``dom=`` on every combo line, which is printed with per-device
+        GB, the three roofline terms and the trace seconds (``[dryrun]``
+        lines).
+    ``reduced`` runs (a) and (b) on gemma2-2b ``.reduced()`` (a rehearsal on
+    the CPU: ``dryrun_phase(torch.device("cpu"), "", cli=(), reduced=True)``,
+    where the peak band is not read).  Returns the path launches {tag:
+    counts}."""
+    import os
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batch_stream
+    from repro_torch.kernels import runtime
+    from repro_torch.launch.mesh import HBM_BW, ICI_BW, PEAK_FLOPS_BF16
+    from repro_torch.models import (attn_launches_per_step, cast_compute, init_decode_state,
+                                    init_model, init_train_state, make_decode_step,
+                                    make_train_step)
+    from repro_torch.roofline import CostCounter
+
+    cuda = dev.type == "cuda"
+    full = get_config("gemma2-2b")
+    full = full.reduced() if reduced else full
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_MB_TOKENS", None)
+    t_start = time.perf_counter()
+    clis = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+                             cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True) for args in cli]
+    train_shape = ("train_4k", DRY_TRAIN["seq"], DRY_TRAIN["batch"], "train")
+    decode_shape = ("decode_32k", DRY_DECODE["max_len"], DRY_DECODE["batch"], "decode")
+    kids = [subprocess.Popen(_dry_child(sh, dev.type, reduced), cwd=ROOT, env=env,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for sh in (train_shape, decode_shape)]
+
+    def finish(p, tag):
+        try:
+            out, err = p.communicate(timeout=DRY_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            fail(f"dryrun {tag}: no result in {DRY_TIMEOUT} s")
+        said = [ln for ln in err.splitlines() if not re.search(r"\]:W\d{4}|Warning", ln)]
+        check(p.returncode == 0, f"dryrun {tag}: exit {p.returncode}: " + "\n".join(said[-40:]))
+        return out
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def release():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    path = {}
+    try:
+        print(f"[dryrun] {smi}", flush=True)
+        # (a) one full-width train step: the card's, under the counter
+        sync()
+        release()
+        held = torch.cuda.memory_allocated() if cuda else 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        params, opt = init_train_state(full, seed=0, device=dev)
+        step = make_train_step(full, **TRAIN_LR)
+        batch = next(lm_batch_stream(full.vocab_size, DRY_TRAIN["batch"], DRY_TRAIN["seq"],
+                                     seed=0, device=dev))
+        runtime.reset_launches()
+        with CostCounter() as counter:
+            params, opt, m = step(params, opt, batch)
+        sync()
+        real_peak = torch.cuda.max_memory_allocated() - held if cuda else 0
+        real = counter.cost
+        secs = []
+        for _ in range(2):  # s/step outside the counter (its Python costs a step ~x10)
+            sync()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            sync()
+            secs.append(time.perf_counter() - t0)
+        check(not any(runtime.launches().values()),
+              f"dryrun train: a kernel launched: {runtime.launches()}")
+        params = opt = batch = m = step = None
+        release()
+
+        # (b) one full-width decode step: the card's, under the counter
+        dparams = cast_compute(init_model(full, seed=0, device=dev))
+        state = init_decode_state(full, DRY_DECODE["batch"], DRY_DECODE["max_len"], device=dev)
+        tok = torch.zeros((DRY_DECODE["batch"], 1), dtype=torch.int32, device=dev)
+        pos = torch.zeros((), dtype=torch.int32, device=dev)
+        dstep = make_decode_step(full)
+        sync()
+        runtime.reset_launches()
+        with CostCounter() as dcounter:
+            nxt, state = dstep(dparams, state, tok, pos)
+        sync()
+        dlaunch = runtime.launches()
+        path["dryrun: a real gemma2-2b decode step"] = dlaunch
+        dparams = state = nxt = None
+        release()
+
+        dry = [json.loads(finish(p, tag).strip().splitlines()[-1])
+               for p, tag in zip(kids, ("train", "decode"))]
+        t_kids = time.perf_counter() - t_start
+        dt, dd = dry
+        # gemma2-2b: 13 local + 13 global attention layers a step, through the
+        # kernel on the card (the plain version on the CPU, no custom op)
+        want = attn_launches_per_step(full) if cuda else 0
+        pt, pd = dt["per_device"], dd["per_device"]
+        pred_peak = dt["memory"]["peak_bytes"]
+        r = dt["roofline"]
+        print(f"[dryrun] (a) gemma2-2b train, batch {DRY_TRAIN['batch']} x seq "
+              f"{DRY_TRAIN['seq']}, remat {full.remat}, {full.num_layers} layers, 1 x 1 mesh: "
+              f"matmul FLOPs dry "
+              f"{pt['hlo_flops']:.6e} / real {real.flops:.6e}; bytes dry {pt['hlo_bytes']:.6e} / "
+              f"real {real.bytes:.6e}; peak predicted {pred_peak / 1e9:.3f} GB / the card's "
+              f"{real_peak / 1e9:.3f} GB above the {held / 1e9:.2f} GB held (ratio "
+              f"{pred_peak / max(real_peak, 1):.3f}, band {DRY_PEAK_BAND}); roofline compute "
+              f"{r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, collective "
+              f"{r['collective_s']:.4f} s (dom {r['dominant']}; H100 peaks {PEAK_FLOPS_BF16:.3g}"
+              f" FLOP/s, {HBM_BW:.3g} B/s, {ICI_BW:.3g} B/s) against the measured "
+              + " / ".join(f"{v:.3f}" for v in secs) + f" s/step; trace {dt['trace_s']} s  "
+              f"[{smi}]", flush=True)
+        check(pt["hlo_flops"] == real.flops,
+              f"dryrun train: FLOPs dry {pt['hlo_flops']} != real {real.flops}")
+        lo, hi = DRY_PEAK_BAND
+        check(not cuda or lo <= pred_peak / real_peak <= hi,
+              f"dryrun train: predicted peak {pred_peak} / real {real_peak} outside "
+              f"{DRY_PEAK_BAND}")
+        check(not any(dt["launches"].values()), f"dryrun train trace launched {dt['launches']}")
+        calls_dry = pd["calls"].get("repro_torch::decode_attn", 0)
+        calls_real = dcounter.calls.get("repro_torch::decode_attn", 0)
+        print(f"[dryrun] (b) gemma2-2b decode step, batch {DRY_DECODE['batch']}, max_len "
+              f"{DRY_DECODE['max_len']}: decode_attn custom-op calls dry {calls_dry} (launches "
+              f"{dd['launches'].get('decode_attn', 0)}) / real {calls_real} (launches "
+              f"{dlaunch.get('decode_attn', 0)}); matmul FLOPs dry {pd['hlo_flops']:.6e} / real "
+              f"{dcounter.cost.flops:.6e}; bytes dry {pd['hlo_bytes']:.6e} / real "
+              f"{dcounter.cost.bytes:.6e}; peak predicted {dd['memory']['peak_bytes'] / 1e9:.3f}"
+              f" GB; trace {dd['trace_s']} s", flush=True)
+        check(calls_dry == want and not any(dd["launches"].values()),
+              f"dryrun decode trace: {calls_dry} custom-op calls, launches {dd['launches']}")
+        check(calls_real == want and dlaunch.get("decode_attn", 0) == want
+              and sum(dlaunch.values()) == want,
+              f"dryrun decode real: {calls_real} calls, launches {dlaunch}")
+        check(pd["hlo_flops"] == dcounter.cost.flops,
+              f"dryrun decode: FLOPs dry {pd['hlo_flops']} != real {dcounter.cost.flops}")
+        print(f"[dryrun] (a) and (b) children done at {t_kids:.1f} s", flush=True)
+
+        # (c) the CLI
+        for p, args in zip(clis, cli):
+            out = finish(p, " ".join(args))
+            lines = [ln for ln in out.splitlines() if " pods=" in ln or "FAILED" in ln]
+            for ln in lines:
+                print(f"[dryrun] (c) {ln}", flush=True)
+            check(lines and all("dom=" in ln for ln in lines),
+                  f"dryrun CLI {' '.join(args)}: a combo without dom=: {out[-1500:]}")
+            print(f"[dryrun] (c) {' '.join(args)}: exit 0, {len(lines)} combos, "
+                  f"{out.strip().splitlines()[-1]}", flush=True)
+    finally:
+        for p in clis + kids:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return path
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
@@ -3652,6 +3891,12 @@ def main():
     t0 = time.perf_counter()
     path_launches.update(train_phase(dev, smi))
     print(f"[train] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # o. the dry run: fake shards on the production meshes, held against real
+    # steps on the card (decode_attn traced as a custom op)
+    t0 = time.perf_counter()
+    path_launches.update(dryrun_phase(dev, smi))
+    print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"

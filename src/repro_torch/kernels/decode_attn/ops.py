@@ -19,10 +19,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
+from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import build, runtime
+from ...roofline.hlo_cost import register_bytes
 from .ref import NEG, decode_attn_plain
 
 __all__ = ["decode_attn", "decode_attn_cuda", "decode_attn_plain", "plan", "Plan", "FAMILY",
@@ -116,7 +119,10 @@ def decode_attn_cuda(q, K, V, kpos, pos, *, window=None, softcap=None):
     or an int; softcap None or a positive float (each valid slot's score
     s becomes softcap tanh(s / softcap) before the softmax).  -> (B, KV,
     G, hd) fp32.  Raises on a bad operand or a refused launch; never falls
-    back."""
+    back.  The launch is the custom op ``torch.ops.repro_torch.decode_attn``
+    (CUDA only), whose fake implementation lets a dry run on fake ``cuda``
+    tensors trace this path without launching; the op carries its FLOP and
+    byte counts for the cost counter (``repro_torch.roofline``)."""
     dev = q.device
     _need(dev.type == "cuda", f"q on {dev}, not a CUDA device")
     _need(q.dim() == 4 and K.dim() == 4 and V.dim() == 4 and kpos.dim() == 2,
@@ -141,15 +147,31 @@ def decode_attn_cuda(q, K, V, kpos, pos, *, window=None, softcap=None):
         _need(pos.dim() == 0 and pos.dtype == torch.int32 and pos.device == dev,
               f"pos must be a 0-d int32 tensor on {dev}, got {pos.dtype} "
               f"{tuple(pos.shape)} on {pos.device}")
-        pos_ptr, pos_val = pos.data_ptr(), 0
+        pos_t, pos_val = pos, 0
     else:
-        pos_ptr, pos_val = None, int(pos)
-    has_window, win = (0, 0) if window is None else (1, int(window))
+        pos_t, pos_val = None, int(pos)
     _need(softcap is None or float(softcap) > 0, f"softcap must be positive, got {softcap}")
-    has_cap, cap = (0, 0.0) if softcap is None else (1, float(softcap))
+    window = None if window is None else int(window)
+    softcap = None if softcap is None else float(softcap)
+    return torch.ops.repro_torch.decode_attn(q, K, V, kpos, pos_t, pos_val, window, softcap)
+
+
+@torch.library.custom_op("repro_torch::decode_attn", mutates_args=(), device_types="cuda")
+def _decode_attn_op(q: torch.Tensor, K: torch.Tensor, V: torch.Tensor, kpos: torch.Tensor,
+                    pos: Optional[torch.Tensor], pos_val: int, window: Optional[int],
+                    softcap: Optional[float]) -> torch.Tensor:
+    """The launch, as a custom op (operands checked by
+    :func:`decode_attn_cuda`; ``pos`` the 0-d tensor or None and then
+    ``pos_val``): a fake tensor takes :func:`_decode_attn_fake` instead, so
+    a dry run traces the card's path and launches nothing."""
+    dev = q.device
+    B, KV, G, hd = q.shape
+    S = K.shape[1]
     out = torch.empty((B, KV, G, hd), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    has_window, win = (0, 0) if window is None else (1, int(window))
+    has_cap, cap = (0, 0.0) if softcap is None else (1, float(softcap))
     vec = hd % 8 == 0 and K.data_ptr() % 16 == 0 and V.data_ptr() % 16 == 0
     pl = plan(B, S, KV, G, hd, K.element_size(),
               torch.cuda.get_device_properties(dev).multi_processor_count, aligned=vec)
@@ -161,7 +183,8 @@ def decode_attn_cuda(q, K, V, kpos, pos, *, window=None, softcap=None):
         err = _fn()(
             int(q.dtype == bf), int(K.dtype == bf), int(vec), int(pl.path == "mma"), B, S, KV,
             G, hd, nsplit, pl.slots_per_split,
-            q.data_ptr(), K.data_ptr(), V.data_ptr(), kpos.data_ptr(), pos_ptr, pos_val,
+            q.data_ptr(), K.data_ptr(), V.data_ptr(), kpos.data_ptr(),
+            None if pos is None else pos.data_ptr(), pos_val,
             has_window, win, has_cap, cap, part_acc.data_ptr(), part_md[0].data_ptr(),
             part_md[1].data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -170,6 +193,26 @@ def decode_attn_cuda(q, K, V, kpos, pos, *, window=None, softcap=None):
         raise RuntimeError(f"decode_attn kernel launch failed: CUDA error {err}")
     FAMILY.launches += 1
     return out
+
+
+@_decode_attn_op.register_fake
+def _decode_attn_fake(q, K, V, kpos, pos, pos_val, window, softcap):
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attn)
+def _decode_attn_flops(q_shape, K_shape, *args, out_shape=None, **kwargs) -> int:
+    """Scores and the weighted sum over every slot: 4 B KV G S hd."""
+    B, KV, G, hd = q_shape
+    return 4 * B * KV * G * K_shape[1] * hd
+
+
+def _decode_attn_bytes(q, K, V, kpos, *args, out=None, **kwargs) -> int:
+    """q, K, V and kpos read once, the output written once."""
+    return sum(t.numel() * t.element_size() for t in (q, K, V, kpos, out))
+
+
+register_bytes(torch.ops.repro_torch.decode_attn, _decode_attn_bytes)
 
 
 FAMILY = runtime.register("decode_attn", decode_attn_cuda, decode_attn_plain)

@@ -33,6 +33,7 @@ from .config import ModelConfig
 from .layers import (Init, _init, attention_apply, init_attention, init_mlp, init_rmsnorm,
                      mlp_apply, rmsnorm)
 from .moe import init_moe, moe_apply
+from .sharding import batch_like, constrain, gather_layer_params, lookup
 from . import ssm
 
 __all__ = ["COMPUTE_DTYPE", "init_model", "cast_compute", "param_count", "forward"]
@@ -129,9 +130,9 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None):
 def _dense_block_apply(bp, x, cfg, positions, window, is_causal=True):
     h = attention_apply(bp["attn"], rmsnorm(bp["ln1"], x, cfg.norm_eps), cfg,
                         positions=positions, layer_window=window, is_causal=is_causal)
-    x = x + h
+    x = constrain(x + h, "batch", None, None)
     h = mlp_apply(bp["mlp"], rmsnorm(bp["ln2"], x, cfg.norm_eps), cfg.activation)
-    return x + h
+    return constrain(x + h, "batch", None, None)
 
 
 def _moe_block_apply(bp, x, cfg, positions):
@@ -140,19 +141,19 @@ def _moe_block_apply(bp, x, cfg, positions):
     x = x + h
     h, aux = moe_apply(bp["moe"], rmsnorm(bp["ln2"], x, cfg.norm_eps), cfg)
     aux = {k: v for k, v in aux.items() if k != "router_probs"}  # the reference's three
-    return x + h, aux
+    return constrain(x + h, "batch", None, None), aux
 
 
 def _xlstm_pair_apply(bp, x, cfg):
     h, _ = ssm.mlstm_apply(bp["mlstm"], rmsnorm(bp["ln_m"], x, cfg.norm_eps), cfg)
     x = x + h
     h, _ = ssm.slstm_apply(bp["slstm"], rmsnorm(bp["ln_s"], x, cfg.norm_eps), cfg)
-    return x + h
+    return constrain(x + h, "batch", None, None)
 
 
 def _mamba_block_apply(bp, x, cfg):
     h, _, _ = ssm.mamba2_apply(bp["mamba"], rmsnorm(bp["ln1"], x, cfg.norm_eps), cfg)
-    return x + h
+    return constrain(x + h, "batch", None, None)
 
 
 def _unstack(tree):
@@ -165,7 +166,9 @@ def _unstack(tree):
 
 def _scan(fn, x, stacked, cfg, with_aux=False):
     """``fn(layer_params, h) -> h`` (``-> (h, aux)`` with ``with_aux``) over
-    the layers of ``stacked`` in order.  With ``cfg.remat`` each layer is
+    the layers of ``stacked`` in order, each layer's weights gathered
+    first (``gather_layer_params``: one layer at a time, under sharding
+    rules).  With ``cfg.remat`` each layer is
     recomputed in the backward (``torch.utils.checkpoint``); with
     ``cfg.remat_blocks`` = g dividing the L layers (g < L), each group of
     L / g layers instead.  Returns h, or (h, [aux of each layer])."""
@@ -176,7 +179,7 @@ def _scan(fn, x, stacked, cfg, with_aux=False):
     def run(group, h):
         out = []
         for lp in group:
-            r = fn(lp, h)
+            r = fn(gather_layer_params(lp), h)
             h = r[0] if with_aux else r
             out.append(r[1] if with_aux else None)
         return h, out
@@ -230,19 +233,21 @@ def forward(params, cfg: ModelConfig, batch: dict, kind: str = "train", dtype=No
     ("train" or "prefill") computes the same, as the reference's."""
     dtype = COMPUTE_DTYPE if dtype is None else dtype
     params = cast_compute(params, dtype)
+    tables = gather_layer_params({k: params[k] for k in ("embedding", "unembed") if k in params})
     tokens = batch["tokens"]
     B, S = tokens.shape
     eps = cfg.norm_eps
-    x = params["embedding"][tokens]
+    x = lookup(tables["embedding"], tokens)
     if cfg.embed_scale:
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(dtype))
+    x = constrain(x, "batch", None, None)
     aux = {}
 
     if cfg.family == "vlm":
         patches = batch["patch_embed"].to(dtype) @ params["patch_proj"]
         x = torch.cat([patches, x], dim=1)
     S_eff = x.shape[1]
-    positions = torch.arange(S_eff, device=x.device)[None].expand(B, S_eff)
+    positions = batch_like(torch.arange(S_eff, device=x.device)[None].expand(B, S_eff), x)
 
     if cfg.family in ("dense", "vlm"):
         if cfg.local_global_alternating:
@@ -269,7 +274,8 @@ def forward(params, cfg: ModelConfig, batch: dict, kind: str = "train", dtype=No
         x = _scan(superblock, x, params["blocks"], cfg)
     elif cfg.family == "encdec":
         enc = batch["enc_embed"].to(dtype) @ params["enc_pos_proj"]
-        enc_pos = torch.arange(enc.shape[1], device=x.device)[None].expand(B, enc.shape[1])
+        enc_pos = batch_like(torch.arange(enc.shape[1], device=x.device)[None].expand(
+            B, enc.shape[1]), x)
         enc = _scan(lambda bp, h: _dense_block_apply(bp, h, cfg, enc_pos, None, is_causal=False),
                     enc, params["enc_layers"], cfg)
         enc = rmsnorm(params["ln_enc"], enc, eps)
@@ -279,7 +285,8 @@ def forward(params, cfg: ModelConfig, batch: dict, kind: str = "train", dtype=No
                                     positions=positions)
             h = h + attention_apply(bp["xattn"], rmsnorm(bp["ln_x"], h, eps), cfg,
                                     positions=positions, is_causal=False, x_kv=enc)
-            return h + mlp_apply(bp["mlp"], rmsnorm(bp["ln2"], h, eps), cfg.activation)
+            return constrain(h + mlp_apply(bp["mlp"], rmsnorm(bp["ln2"], h, eps), cfg.activation),
+                             "batch", None, None)
 
         x = _scan(dec_block, x, params["dec_layers"], cfg)
     else:
@@ -288,11 +295,12 @@ def forward(params, cfg: ModelConfig, batch: dict, kind: str = "train", dtype=No
     x = rmsnorm(params["ln_f"], x, eps)
     if cfg.family == "vlm":  # logits over the token positions only
         x = x[:, -S:]
-    unembed = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
+    unembed = tables["embedding"].T if cfg.tie_embeddings else tables["unembed"]
     logits = x @ unembed
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         logits = cap * torch.tanh(logits.float() / cap).to(logits.dtype)
+    logits = constrain(logits, "batch", None, "tensor")
     return logits, aux
 
 

@@ -16,14 +16,15 @@ position go to slot ``pos % size`` by an indexed copy on the device, the
 recurrent states are copied into their layer's slice.  ``pos`` is a 0-d
 int32 tensor on the state's device, read by the attention kernel without a
 host sync.  :func:`decode_step` loops over the stacked layer axis in Python
-(views of the stacked params and caches, no copies) where the reference
-scans, and returns the state as the reference's does.
+(views of the stacked params and caches, no copies; each layer's weights
+through ``gather_layer_params``, a no-op without sharding rules) where the
+reference scans, and returns the state as the reference's does.
 
 Every attention layer, self and cross, goes through
 ``repro_torch.kernels.decode_attn.ops.decode_attn`` (the hand-written
 Hopper kernel for CUDA tensors, its plain version for CPU tensors), the
-attention logit softcap included.  ``decode_state_specs`` (sharding) has
-no counterpart here yet.
+attention logit softcap included.  ``decode_state_specs`` gives the
+state's sharding by leaf name, as the reference's.
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ from .backbone import COMPUTE_DTYPE
 from .config import ModelConfig
 from .layers import _group_q, mlp_apply, rmsnorm, rope
 from .moe import moe_apply
+from .sharding import (constrain, current_rules, fit_spec_to_mesh, gather_layer_params,
+                       lookup, ring_write, shard_local, split_dim)
 from . import ssm
 
-__all__ = ["init_decode_state", "decode_step", "attn_launches_per_step"]
+__all__ = ["init_decode_state", "decode_step", "attn_launches_per_step", "decode_state_specs"]
 
 
 # --- cache construction -------------------------------------------------------
@@ -123,6 +126,43 @@ def attn_launches_per_step(cfg: ModelConfig) -> int:
     return 0
 
 
+_CACHE_SPECS = {
+    "k": ("batch", "seq", "tensor", None),
+    "v": ("batch", "seq", "tensor", None),
+    "kpos": ("batch", "seq"),
+    "cross_k": ("batch", None, "tensor", None),
+    "cross_v": ("batch", None, "tensor", None),
+    "mlstm_state": ("batch", "tensor", None, None),
+    "ssm_state": ("batch", "tensor", None, None),
+    "conv_state": ("batch", None, "tensor"),
+    "slstm_c": ("batch", "tensor", None),
+    "slstm_n": ("batch", "tensor", None),
+    "slstm_m": ("batch", "tensor", None),
+    "slstm_h": ("batch", "tensor", None),
+}
+
+
+def decode_state_specs(state_tree, mesh=None):
+    """The spec tree of a decode state, by leaf name (rules-resolved), as
+    :func:`repro_torch.models.sharding.tree_param_specs` gives a parameter
+    tree's.  A leaf the reference has no rule for (the port's
+    ``cross_kpos``) is replicated."""
+    rules = current_rules()
+
+    def walk(tree):
+        out = {}
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                out[name] = walk(leaf)
+                continue
+            axes = [rules.get(a, None) if a else None for a in _CACHE_SPECS.get(name, ())]
+            spec = (None,) * (leaf.ndim - len(axes)) + tuple(axes)
+            out[name] = fit_spec_to_mesh(spec, leaf.shape, mesh)
+        return out
+
+    return walk(state_tree)
+
+
 def _at(tree, i):
     """Layer ``i`` of a stacked tree: views, no copies."""
     return {k: _at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
@@ -136,17 +176,26 @@ def _attn_decode(ap, x, cfg, cache, pos, window):
     B = x.shape[0]
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     pos_arr = pos.reshape(1, 1).expand(B, 1)
-    q = rope((x @ ap["wq"]).reshape(B, 1, Hq, hd), pos_arr, cfg.rope_theta)
-    k_new = rope((x @ ap["wk"]).reshape(B, 1, Hkv, hd), pos_arr, cfg.rope_theta)
-    v_new = (x @ ap["wv"]).reshape(B, 1, Hkv, hd)
+    q = rope(split_dim(x @ ap["wq"], -1, (Hq, hd)), pos_arr, cfg.rope_theta)
+    k_new = rope(split_dim(x @ ap["wk"], -1, (Hkv, hd)), pos_arr, cfg.rope_theta)
+    v_new = split_dim(x @ ap["wv"], -1, (Hkv, hd))
     K, V, kpos = cache["k"], cache["v"], cache["kpos"]
     slot = (pos % K.shape[1]).reshape(1).long()
-    K.index_copy_(1, slot, k_new.to(K.dtype))
-    V.index_copy_(1, slot, v_new.to(V.dtype))
-    kpos.index_copy_(1, slot, pos_arr.to(kpos.dtype))
+    ring_write((K, V, kpos), (k_new.to(K.dtype), v_new.to(V.dtype), pos_arr.to(kpos.dtype)),
+               slot)
     qg = _group_q(q, Hkv)[:, 0].contiguous()  # (B, KV, G, hd), head h = kv G + g
-    out = decode_attn(qg, K, V, kpos, pos, window=window, softcap=cfg.attn_logit_softcap)
+    out = _attend(qg, K, V, kpos, pos, window=window, softcap=cfg.attn_logit_softcap)
     return out.reshape(B, 1, Hq * hd).to(x.dtype) @ ap["wo"]
+
+
+def _attend(qg, K, V, kpos, pos, window=None, softcap=None):
+    """``decode_attn`` on each device's own rows and KV heads under
+    sharding rules (a sequence sharded over a mesh axis is gathered: the
+    kernel attends to whole rows); a plain call otherwise."""
+    return shard_local(
+        lambda q, k, v, kp: decode_attn(q.contiguous(), k.contiguous(), v.contiguous(),
+                                        kp.contiguous(), pos, window=window, softcap=softcap),
+        (qg, K, V, kpos), ((0, 1), (0, 2), (0, 2), (0, None)), ((tuple(qg.shape), (0, 1)),))
 
 
 def _attn_cross_decode(ap, x, cfg, cross_k, cross_v, cross_kpos):
@@ -154,8 +203,8 @@ def _attn_cross_decode(ap, x, cfg, cross_k, cross_v, cross_kpos):
     all-zero kpos row at pos 0 makes every slot valid."""
     B = x.shape[0]
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    qg = _group_q((x @ ap["wq"]).reshape(B, 1, Hq, hd), Hkv)[:, 0].contiguous()
-    out = decode_attn(qg, cross_k, cross_v, cross_kpos, 0)
+    qg = _group_q(split_dim(x @ ap["wq"], -1, (Hq, hd)), Hkv)[:, 0].contiguous()
+    out = _attend(qg, cross_k, cross_v, cross_kpos, 0)
     return out.reshape(B, 1, Hq * hd).to(x.dtype) @ ap["wo"]
 
 
@@ -175,9 +224,13 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos, moe_aux=None):
     (logits (B, 1, V), state).  ``moe_aux``: a list that collects each MoE
     layer's aux dict, computed only when it is given (the reference
     discards them in decode)."""
-    x = params["embedding"][tokens]
+    tables = gather_layer_params({k: params[k] for k in ("embedding", "unembed") if k in params})
+    x = lookup(tables["embedding"], tokens)
     if cfg.embed_scale:
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(x.dtype))
+    # under sharding rules the token rows leave the table's fsdp sharding
+    # here, as the training forward's constraint does (XLA chooses alone)
+    x = constrain(x, "batch", None, None)
     fam = cfg.family
     eps = cfg.norm_eps
 
@@ -185,12 +238,12 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos, moe_aux=None):
         if cfg.local_global_alternating:
             layers, caches = params["layers"], state["pairs"]
             for i in range(cfg.num_layers // 2):
-                bp, c = _at(layers, i), _at(caches, i)
+                bp, c = gather_layer_params(_at(layers, i)), _at(caches, i)
                 x = _dense_decode(bp["local"], x, cfg, c["local"], pos, cfg.sliding_window)
                 x = _dense_decode(bp["global"], x, cfg, c["global"], pos, None)
         elif fam == "moe":
             for i in range(cfg.num_layers):
-                bp, c = _at(params["layers"], i), _at(state["layers"], i)
+                bp, c = gather_layer_params(_at(params["layers"], i)), _at(state["layers"], i)
                 x = x + _attn_decode(bp["attn"], rmsnorm(bp["ln1"], x, eps), cfg, c, pos,
                                      cfg.sliding_window)
                 mo, aux = moe_apply(bp["moe"], rmsnorm(bp["ln2"], x, eps), cfg,
@@ -200,11 +253,11 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos, moe_aux=None):
                     moe_aux.append(aux)
         else:
             for i in range(cfg.num_layers):
-                x = _dense_decode(_at(params["layers"], i), x, cfg, _at(state["layers"], i),
-                                  pos, cfg.sliding_window)
+                x = _dense_decode(gather_layer_params(_at(params["layers"], i)), x, cfg,
+                                  _at(state["layers"], i), pos, cfg.sliding_window)
     elif fam == "ssm":
         for i in range(cfg.num_layers // 2):
-            bp, c = _at(params["layers"], i), _at(state["pairs"], i)
+            bp, c = gather_layer_params(_at(params["layers"], i)), _at(state["pairs"], i)
             o, ms = ssm.mlstm_step(bp["mlstm"], rmsnorm(bp["ln_m"], x, eps), cfg,
                                    c["mlstm_state"])
             x = x + o
@@ -219,7 +272,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos, moe_aux=None):
         for i in range(cfg.num_layers // cfg.hybrid_attn_every):
             bp, c = _at(params["blocks"], i), _at(state["blocks"], i)
             for j in range(cfg.hybrid_attn_every):
-                mp, mc = _at(bp["mamba_layers"], j), _at(c["mamba_layers"], j)
+                mp, mc = gather_layer_params(_at(bp["mamba_layers"], j)), _at(c["mamba_layers"], j)
                 o, s_new, cv_new = ssm.mamba2_step(mp["mamba"], rmsnorm(mp["ln1"], x, eps), cfg,
                                                    mc["ssm_state"], mc["conv_state"])
                 x = x + o
@@ -228,7 +281,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos, moe_aux=None):
             x = _dense_decode(shared, x, cfg, c["attn"], pos, cfg.sliding_window)
     elif fam == "encdec":
         for i in range(cfg.num_layers):
-            bp, c = _at(params["dec_layers"], i), _at(state["dec_layers"], i)
+            bp, c = gather_layer_params(_at(params["dec_layers"], i)), _at(state["dec_layers"], i)
             x = x + _attn_decode(bp["attn"], rmsnorm(bp["ln1"], x, eps), cfg, c, pos, None)
             x = x + _attn_cross_decode(bp["xattn"], rmsnorm(bp["ln_x"], x, eps), cfg,
                                        c["cross_k"], c["cross_v"], state["cross_kpos"])
@@ -237,7 +290,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, pos, moe_aux=None):
         raise ValueError(fam)
 
     x = rmsnorm(params["ln_f"], x, eps)
-    unembed = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
+    unembed = tables["embedding"].T if cfg.tie_embeddings else tables["unembed"]
     logits = x @ unembed
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap

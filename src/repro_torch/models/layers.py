@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.protocols.base import resolve_device
+from .sharding import constrain, gated_halves, settle, shard_local, split_dim
 
 __all__ = ["ATTN_CHUNK", "ATTN_DENSE_MAX", "Init", "_init", "init_rmsnorm", "rmsnorm", "rope",
            "init_attention", "_softcap", "_group_q", "_attn_dense", "_attn_chunked",
@@ -68,7 +69,7 @@ def init_rmsnorm(rng: Init, d, lead=()):
 
 
 def rmsnorm(params, x, eps=1e-6):
-    xf = x.float()
+    xf = settle(x).float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * params["scale"]
     return out.to(x.dtype)
@@ -111,8 +112,8 @@ def _softcap(x, cap: Optional[float]):
 
 def _group_q(q, n_kv):
     """(B, S, H, hd) -> (B, S, KV, G, hd): head h = kv G + g."""
-    B, S, H, hd = q.shape
-    return q.reshape(B, S, n_kv, H // n_kv, hd)
+    H = q.shape[2]
+    return split_dim(q, 2, (n_kv, H // n_kv))
 
 
 def _attn_dense(q, k, v, mask, softcap):
@@ -167,6 +168,16 @@ def _attn_chunked(q, k, v, qpos, kpos, window, softcap, is_causal, chunk=None):
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)  # (B, Sq, KV, G, hd)
 
 
+def _attend(core, q, k, v, aux, **kw):
+    """``core(q, k, v, *aux, **kw)`` — q (B, Sq, KV, G, hd), k / v (B, Sk,
+    KV, hd), each of ``aux`` (a mask or positions) of batch B or 1 — on each
+    device's own rows and KV heads under sharding rules (``shard_local``;
+    the core needs whole sequences); a plain call otherwise."""
+    dims = ((0, 2), (0, 2), (0, 2)) + tuple((0 if a.shape[0] > 1 else None, None) for a in aux)
+    return shard_local(lambda *a: core(*a, **kw), (q, k, v, *aux), dims,
+                       ((tuple(q.shape), (0, 2)),))
+
+
 def attention_apply(params, x, cfg, *, positions, layer_window: Optional[int] = None,
                     is_causal: bool = True, kv_cache=None, cache_len=None, x_kv=None):
     """General attention.
@@ -183,9 +194,9 @@ def attention_apply(params, x, cfg, *, positions, layer_window: Optional[int] = 
     B, S, D = x.shape
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     src = x if x_kv is None else x_kv
-    q = (x @ params["wq"]).reshape(B, S, Hq, hd)
-    k = (src @ params["wk"]).reshape(B, src.shape[1], Hkv, hd)
-    v = (src @ params["wv"]).reshape(B, src.shape[1], Hkv, hd)
+    q = split_dim(x @ params["wq"], -1, (Hq, hd))
+    k = split_dim(src @ params["wk"], -1, (Hkv, hd))
+    v = split_dim(src @ params["wv"], -1, (Hkv, hd))
 
     if x_kv is None:  # rope only for self-attention
         q = rope(q, positions, cfg.rope_theta)
@@ -205,24 +216,25 @@ def attention_apply(params, x, cfg, *, positions, layer_window: Optional[int] = 
         mask = kpos <= cache_len
         if layer_window is not None:
             mask = mask & (kpos > (cache_len - layer_window))
-        out = _attn_dense(_group_q(q, Hkv), K, V, mask, cfg.attn_logit_softcap)
+        out = _attend(_attn_dense, _group_q(q, Hkv), K, V, (mask,),
+                      softcap=cfg.attn_logit_softcap)
     else:
         qg = _group_q(q, Hkv)
         Sk = k.shape[1]
         kpos = torch.arange(Sk, device=x.device)[None].expand(B, Sk)
         if S * Sk > ATTN_DENSE_MAX * ATTN_DENSE_MAX:
-            out = _attn_chunked(qg, k, v, positions, kpos, layer_window,
-                                cfg.attn_logit_softcap, is_causal)
+            out = _attend(_attn_chunked, qg, k, v, (positions, kpos), window=layer_window,
+                          softcap=cfg.attn_logit_softcap, is_causal=is_causal)
         else:
-            mask = torch.ones((B, 1, 1, S, Sk), dtype=torch.bool, device=x.device)
+            mask = torch.ones((1, 1, 1, S, Sk), dtype=torch.bool, device=x.device)
             qp, kp = positions[:, None, None, :, None], kpos[:, None, None, None, :]
             if is_causal:
                 mask = mask & (qp >= kp)
             if layer_window is not None:
                 mask = mask & ((qp - kp) < layer_window)
-            out = _attn_dense(qg, k, v, mask, cfg.attn_logit_softcap)
+            out = _attend(_attn_dense, qg, k, v, (mask,), softcap=cfg.attn_logit_softcap)
 
-    out = out.reshape(B, S, Hq * hd).to(x.dtype)
+    out = constrain(out.reshape(B, S, Hq * hd).to(x.dtype), "batch", None, "tensor")
     proj = out @ params["wo"]
     return (proj, new_cache) if kv_cache is not None else proj
 
@@ -240,11 +252,14 @@ def _gelu(x):
 
 
 def mlp_apply(params, x, activation):
-    h = x @ params["wi"]
+    """The MLP on x (B, S, D), or (T, D) for the MoE's shared and residual
+    experts, where the reference's three names fall to (batch, None): the
+    hidden dim replicated over the tensor axis, as there."""
+    hidden = ("batch", None, "tensor")
     if activation in ("swiglu", "geglu"):
-        g, u = h.chunk(2, dim=-1)
+        g, u = (constrain(t, *hidden) for t in gated_halves(x, params["wi"]))
         act = F.silu(g) if activation == "swiglu" else _gelu(g)
         h = act * u
     else:
-        h = _gelu(h)
+        h = _gelu(constrain(x @ params["wi"], *hidden))
     return h @ params["wo_mlp"]

@@ -15,8 +15,10 @@ Aux numbers, computed only when asked for: load-balance (Switch), router
 z-loss and the drop fraction, as the reference's, and the router's
 probabilities (``router_probs``), from which a checker reads how near a
 top-k choice came to flipping.
-The reference's expert-parallel ``shard_map`` branch is mesh sharding and
-has no counterpart here yet.
+Under sharding rules on a DTensor batch with a model axis wider than one
+device, the dispatch runs expert-parallel (the reference's ``shard_map``
+branch, here ``local_map``: :func:`_expert_parallel`); otherwise, and on
+every plain tensor, single-device.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from .layers import Init, _gelu, _init, init_mlp, mlp_apply
+from .sharding import (_layout, axes_size, current_rules, is_dtensor, mesh_sizes, settle,
+                       to_placements)
 
 __all__ = ["init_moe", "_routed_local", "moe_apply"]
 
@@ -88,6 +92,70 @@ def _routed_local(xt, expert_idx, gate_vals, w_in, w_out, cfg, e_offset, e_total
     return combined, keep.reshape(T, K)
 
 
+def _pad_experts(w, n_pad):
+    if n_pad == 0:
+        return w
+    return torch.cat([w, torch.zeros((n_pad,) + tuple(w.shape[1:]), dtype=w.dtype,
+                                     device=w.device)], dim=0)
+
+
+def _expert_parallel(params, xt, expert_idx, gate_vals, cfg, model_ax, batch_ax, n_model):
+    """The reference's expert-parallel branch, on DTensors: every (data,
+    model) device scatters its batch-local tokens into a dense buffer for
+    its model-local slab of experts (``_routed_local`` under ``local_map``),
+    and the only cross-device collective is the sum of the combined (T, D)
+    output (and the keep counts) over the model axis.  Experts that don't
+    divide the model axis (qwen2's 60) are zero-padded to the next
+    multiple; the router never selects the dead experts."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    E = cfg.num_experts
+    n_pad = (-E) % n_model
+    w_in = _pad_experts(params["w_in_e"], n_pad)
+    w_out = _pad_experts(params["w_out_e"], n_pad)
+    E_loc = (E + n_pad) // n_model
+    mesh = xt.device_mesh
+    tokens = to_placements((batch_ax, None), mesh)
+    experts = to_placements((model_ax, None, None), mesh)
+    m = mesh.mesh_dim_names.index(model_ax)
+    coord = _layout(mesh)[1]
+    summed = [Partial() if i == m else p for i, p in enumerate(tokens)]
+
+    def body(xt_l, ei_l, gv_l, w_in_l, w_out_l):
+        off = coord[m] * E_loc
+        combined, keep = _routed_local(xt_l, ei_l, gv_l, w_in_l, w_out_l, cfg, off, E + n_pad)
+        return combined, keep.to(torch.int32)
+
+    combined, keep_ct = local_map(
+        body, out_placements=(summed, summed),
+        in_placements=(tokens, tokens, tokens, experts, experts),
+        device_mesh=mesh, redistribute_inputs=True,
+    )(xt, expert_idx, gate_vals, w_in, w_out)
+    combined = combined.redistribute(mesh, tokens)
+    keep = keep_ct.redistribute(mesh, tokens) > 0
+    return combined, keep
+
+
+def _expert_counts(flat_e, kept, E):
+    """(E,) fp32: the sum of ``kept`` over the choices of each expert; a
+    DTensor's shards count their own choices and the counts are summed."""
+    def count(fe, k):
+        return torch.zeros(E, device=fe.device).index_add_(0, fe, k)
+
+    if not is_dtensor(flat_e):
+        return count(flat_e, kept)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = flat_e.device_mesh
+    pl = list(flat_e.placements)
+    out = [Replicate() if p.is_replicate() else Partial() for p in pl]
+    return local_map(count, out_placements=out, in_placements=(pl, pl), device_mesh=mesh,
+                     redistribute_inputs=True)(flat_e, kept).redistribute(
+        mesh, [Replicate()] * mesh.ndim)
+
+
 def moe_apply(params, x, cfg, with_aux=True):
     """x: (B, S, D) -> (out (B, S, D), aux dict, or None when not
     ``with_aux``)."""
@@ -101,8 +169,16 @@ def moe_apply(params, x, cfg, with_aux=True):
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     gate_vals = gate_vals.to(xt.dtype)
 
-    combined, keep = _routed_local(xt, expert_idx, gate_vals, params["w_in_e"],
-                                   params["w_out_e"], cfg, 0, E)
+    rules = current_rules()
+    sizes = mesh_sizes(x.device_mesh) if rules and is_dtensor(x) else {}
+    model_ax, batch_ax = rules.get("tensor"), rules.get("batch")
+    n_model = sizes.get(model_ax, 1) if isinstance(model_ax, str) else 1
+    if n_model > 1 and batch_ax is not None and T % axes_size(batch_ax, sizes) == 0:
+        combined, keep = _expert_parallel(params, xt, expert_idx, gate_vals, cfg, model_ax,
+                                          batch_ax, n_model)
+    else:
+        combined, keep = _routed_local(xt, expert_idx, gate_vals, params["w_in_e"],
+                                       params["w_out_e"], cfg, 0, E)
     if "shared" in params:
         combined = combined + mlp_apply(params["shared"], xt, cfg.activation)
     if "dense_res" in params:
@@ -113,11 +189,12 @@ def moe_apply(params, x, cfg, with_aux=True):
     flat_e = expert_idx.reshape(-1)
     me = probs.mean(dim=0)  # mean router prob per expert
     kept = keep.reshape(-1).float()
-    ce = torch.zeros(E, device=x.device).index_add_(0, flat_e, kept) / kept.sum().clamp_min(1.0)
+    ce = _expert_counts(flat_e, kept, E) / kept.sum().clamp_min(1.0)
     aux = {
         "load_balance": E * torch.sum(me * ce),
         "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
         "drop_frac": 1.0 - kept.mean(),
         "router_probs": probs,  # the port's own: (T, E)
     }
+    aux = {k: settle(v) for k, v in aux.items()}  # a DTensor's pending means and sums reduced
     return combined.reshape(B, S, D), aux

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from .layers import Init, _init
+from .sharding import shard_local, split_dim
 
 __all__ = ["SSM_CHUNK", "chunked_gla", "gla_step", "init_mlstm", "_mlstm_qkv_gates",
            "mlstm_apply", "mlstm_step", "init_slstm", "_slstm_cell", "slstm_apply", "slstm_step",
@@ -38,7 +39,16 @@ def chunked_gla(q, k, v, log_a, w, state=None, chunk: int = SSM_CHUNK):
     """q, k: (B, S, H, dk); v: (B, S, H, dv); log_a, w: (B, S, H); state
     (B, H, dk, dv) fp32 (zeros when None).  S must be a multiple of the
     chunk (min(chunk, S)).  Returns (y (B, S, H, dv) in v's dtype, the
-    final state)."""
+    final state).  Under sharding rules each device scans its own rows and
+    heads (``shard_local``)."""
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    return shard_local(lambda *a: _chunked_gla(*a, chunk=chunk), (q, k, v, log_a, w, state),
+                       ((0, 2),) * 5 + ((0, 1),),
+                       (((B, S, H, dv), (0, 2)), ((B, H, dk, dv), (0, 1))))
+
+
+def _chunked_gla(q, k, v, log_a, w, state, chunk):
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     C = min(chunk, S)
@@ -78,6 +88,12 @@ def chunked_gla(q, k, v, log_a, w, state=None, chunk: int = SSM_CHUNK):
 def gla_step(q, k, v, log_a, w, state):
     """Single decode step.  q, k: (B, H, dk); v: (B, H, dv); log_a, w:
     (B, H); state (B, H, dk, dv) fp32."""
+    B, H = q.shape[:2]
+    return shard_local(_gla_step, (q, k, v, log_a, w, state), ((0, 1),) * 6,
+                       (((B, H, v.shape[-1]), (0, 1)), (tuple(state.shape), (0, 1))))
+
+
+def _gla_step(q, k, v, log_a, w, state):
     a = torch.exp(log_a.clamp(-60.0, 0.0))[..., None, None]
     state = a * state + (w[..., None, None] * k[..., :, None] * v[..., None, :])
     y = torch.einsum("bhd,bhdv->bhv", q.float(), state)
@@ -99,17 +115,17 @@ def init_mlstm(rng: Init, cfg, lead=()):
 
 
 def _mlstm_qkv_gates(params, x, cfg):
-    B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.hd
     # sqrt(hd) rounded to x's dtype, as the reference casts it (a host number)
     root = float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(x.dtype))
-    q = (x @ params["wq"]).reshape(B, S, H, hd) / root
-    k = (x @ params["wk"]).reshape(B, S, H, hd) / root
-    v = (x @ params["wv"]).reshape(B, S, H, hd)
-    gates = (x @ params["w_gates"]).reshape(B, S, 2, H).float()
-    log_f = F.logsigmoid(gates[:, :, 0] + 3.0)  # forget-gate bias init ~ open
+    q = split_dim(x @ params["wq"], -1, (H, hd)) / root
+    k = split_dim(x @ params["wk"], -1, (H, hd)) / root
+    v = split_dim(x @ params["wv"], -1, (H, hd))
+    gates = split_dim(x @ params["w_gates"], -1, (2, H)).float()
+    f_pre = gates[:, :, 0] + 3.0  # forget-gate bias init ~ open
+    log_f = shard_local(F.logsigmoid, (f_pre,), ((0, 2),), ((tuple(f_pre.shape), (0, 2)),))
     w_i = torch.sigmoid(gates[:, :, 1])
-    og = torch.sigmoid((x @ params["w_og"]).reshape(B, S, H, hd).float())
+    og = torch.sigmoid(split_dim(x @ params["w_og"], -1, (H, hd)).float())
     return q, k, v, log_f, w_i, og
 
 
@@ -167,27 +183,38 @@ def slstm_apply(params, x, cfg, state=None):
     if state is None:
         z = torch.zeros((B, H, hd), dtype=torch.float32, device=x.device)
         state = (z, z, torch.full((B, H, hd), -1e30, dtype=torch.float32, device=x.device), z)
-    pre_x = (x @ params["wi"]).reshape(B, S, 4, H, hd).float()
-    rmat = params["r_h"]
+    pre_x = split_dim(x @ params["wi"], -1, (4, H, hd)).float()
+    head = (0, 1)
+    y, *state = shard_local(
+        lambda p, r, *st: _slstm_scan(p, r, tuple(st), x.dtype),
+        (pre_x, params["r_h"], *state), ((0, 3), (None, 0)) + (head,) * 4,
+        (((B, S, H, hd), (0, 2)),) + (((B, H, hd), head),) * 4)
+    return y.reshape(B, S, H * hd).to(x.dtype) @ params["wo"], tuple(state)
+
+
+def _slstm_scan(pre_x, rmat, state, dtype):
+    """The sLSTM recurrence over pre_x (B, S, 4, H, hd) -> (the hidden
+    states (B, S, H, hd) fp32, *the final state)."""
+    B, S, _, H, hd = pre_x.shape
     hs = []
     for t in range(S):
         # previous hidden (B, H, hd) -> 4 gate pre-activations, head-local
-        rec = torch.einsum("bhd,hdk->bhk", state[3].to(x.dtype), rmat)  # (B, H, 4 hd)
+        rec = torch.einsum("bhd,hdk->bhk", state[3].to(dtype), rmat)  # (B, H, 4 hd)
         rec = rec.reshape(B, H, 4, hd).transpose(1, 2)
         state = _slstm_cell(pre_x[:, t] + rec.float(), state, H, hd)
         hs.append(state[3])
-    y = torch.stack(hs, dim=1).reshape(B, S, H * hd).to(x.dtype)
-    return y @ params["wo"], state
+    return (torch.stack(hs, dim=1), *state)
 
 
 def slstm_step(params, x, cfg, state):
     """x: (B, 1, D); state (c, n, m, h), each (B, H, hd) fp32."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.hd
-    pre_x = (x @ params["wi"]).reshape(B, 4, H, hd).float()
-    rec = torch.einsum("bhd,hdk->bhk", state[3].to(x.dtype), params["r_h"])  # (B, H, 4 hd)
-    rec = rec.reshape(B, H, 4, hd).transpose(1, 2)
-    state = _slstm_cell(pre_x + rec.float(), state, H, hd)
+    pre_x = split_dim(x @ params["wi"], -1, (4, H, hd))[:, 0].float()
+    head = (0, 1)
+    state = shard_local(lambda p, r, *st: _slstm_scan(p[:, None], r, st, x.dtype)[1:],
+                        (pre_x, params["r_h"], *state), ((0, 2), (None, 0)) + (head,) * 4,
+                        (((B, H, hd), head),) * 4)
     y = state[3].reshape(B, 1, H * hd).to(x.dtype)
     return y @ params["wo"], state
 
@@ -256,7 +283,7 @@ def mamba2_apply(params, x, cfg, state=None, conv_state=None):
     log_a = -torch.exp(params["a_log"])[None, None] * dt  # <= 0
     q = Cm[:, :, None, :].expand(B, S, H, N)
     k = Bm[:, :, None, :].expand(B, S, H, N)
-    v = (xin.reshape(B, S, H, hd).float() * dt[..., None]).to(x.dtype)
+    v = (split_dim(xin, -1, (H, hd)).float() * dt[..., None]).to(x.dtype)
     y, state = chunked_gla(q, k, v, log_a, torch.ones_like(dt), state)
     y = y.reshape(B, S, d_inner)
     # gated RMS norm, then the out-projection
@@ -278,7 +305,7 @@ def mamba2_step(params, x, cfg, state, conv_state):
     log_a = -torch.exp(params["a_log"])[None] * dt
     q = Cm[:, 0, None, :].expand(B, H, N)
     k = Bm[:, 0, None, :].expand(B, H, N)
-    v = (xin[:, 0].reshape(B, H, hd).float() * dt[..., None]).to(x.dtype)
+    v = (split_dim(xin[:, 0], -1, (H, hd)).float() * dt[..., None]).to(x.dtype)
     y, state = gla_step(q, k, v, log_a, torch.ones_like(dt), state)
     y = y.reshape(B, 1, d_inner)
     yf = y.float()

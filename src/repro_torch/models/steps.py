@@ -21,6 +21,8 @@ from ..optim import AdamWState, adamw_init, adamw_update, cosine_warmup
 from .backbone import forward, init_model
 from .config import ModelConfig
 from .decode import decode_step as _decode_step
+from .sharding import (constrain, current_rules, gather_last, is_dtensor, logical_rules,
+                       microbatch_rows, pod_local, without_axis)
 
 __all__ = ["MOE_AUX_WEIGHT", "ROUTER_Z_WEIGHT", "loss_fn", "make_train_step",
            "make_prefill_step", "make_decode_step", "init_train_state"]
@@ -38,7 +40,7 @@ def loss_fn(params, cfg: ModelConfig, batch, dtype=None):
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     # a masked label's gold logit is read at 0 and multiplied by 0
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    gold = gather_last(logits, labels.clamp_min(0))
     mask = (labels >= 0).float()
     nll = torch.sum((logz - gold) * mask) / torch.clamp(torch.sum(mask), min=1.0)
     total = nll
@@ -90,7 +92,10 @@ def make_train_step(cfg: ModelConfig, *, peak_lr=3e-4, warmup=100, total_steps=1
     accumulates fp32 gradients over the pieces (divided by their count);
     the metrics are the last microbatch's.  ``qcomm_bits > 0``: the
     gradients of this rank's shard of the batch, reduced over ``group``
-    with ``comm.q_psum`` (module docstring)."""
+    with ``comm.q_psum`` (module docstring); on a DTensor batch ``group``
+    is a mesh axis's (the pods): each pod's gradients on the mesh without
+    that axis (``sharding.pod_local``), then each leaf's local shard summed
+    over the pods so, as the reference's multi-pod step does."""
 
     def grad_fn(params, batch):
         leaves = [p.detach().requires_grad_() for p in _leaf_list(params)]
@@ -102,19 +107,43 @@ def make_train_step(cfg: ModelConfig, *, peak_lr=3e-4, warmup=100, total_steps=1
             return grad_fn(params, batch)
         B = batch["tokens"].shape[0]
         assert B % microbatches == 0, (B, microbatches)
-        g_acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in _leaf_list(params)]
+        g_acc = [torch.zeros_like(p, dtype=torch.float32) for p in _leaf_list(params)]
         metrics = _zero_metrics(cfg, g_acc[0].device)  # the carry, as the reference's scan
         for i in range(microbatches):
-            rows = slice(i * B // microbatches, (i + 1) * B // microbatches)
-            g, metrics = grad_fn(params, {k: v[rows] for k, v in batch.items()})
+            g, metrics = grad_fn(params, {k: microbatch_rows(v, i, microbatches)
+                                          for k, v in batch.items()})
             for a, b in zip(g_acc, g):
                 a.add_(b.float())
             del g
         return [g / microbatches for g in g_acc], metrics
 
     def train_step(params, opt_state: AdamWState, batch):
-        if qcomm_bits:
+        if qcomm_bits and is_dtensor(batch["tokens"]):
+            # the pods are an axis of the batch's mesh: each pod computes its
+            # gradients on the mesh without that axis, on its own rows, under
+            # the rules with the axis struck out (no pod collective inside);
+            # then every leaf's local shard is summed over the pods
+            from torch.distributed.tensor import DTensor
+
+            leaves = _leaf_list(params)
+            views = [pod_local(p, group) for p in leaves]
+            pod_leaves, axis = [v for v, _ in views], views[0][1]
+            pod_params = _like(params, pod_leaves)
+            pod_batch = {k: pod_local(v, group)[0] for k, v in batch.items()}
+            with logical_rules(without_axis(current_rules(), axis)):
+                grads, metrics = accumulate_grads(pod_params, pod_batch)
+            n = C.group_size(group)
+            with torch.no_grad():
+                # the pod's sums over its other axes first, placed as its params
+                grads = [g.redistribute(q.device_mesh, q.placements)
+                         for g, q in zip(grads, pod_leaves)]
+                grads = [DTensor.from_local(q_psum(g.to_local(), group, qcomm_bits) / n,
+                                            p.device_mesh, p.placements, run_check=False,
+                                            shape=p.shape, stride=p.stride())
+                         for g, p in zip(grads, leaves)]
+                metrics = {k: C.all_reduce(v.full_tensor() if is_dtensor(v) else v, group) / n
+                           for k, v in metrics.items()}
+        elif qcomm_bits:
             n, r = C.group_size(group), C.group_rank(group)
             B = batch["tokens"].shape[0]
             assert B % n == 0, (B, n)
@@ -153,7 +182,9 @@ def make_decode_step(cfg: ModelConfig):
 
     def step(params, state, tokens, pos):
         logits, state = _decode_step(params, cfg, state, tokens, pos)
-        nxt = torch.argmax(logits[:, -1].float(), dim=-1)
+        # under sharding rules the vocab is gathered first: DTensor's argmax
+        # over shards reads values on the host
+        nxt = torch.argmax(constrain(logits[:, -1], "batch", None).float(), dim=-1)
         return nxt[:, None].to(torch.int32), state
 
     return step

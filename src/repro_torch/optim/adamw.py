@@ -36,8 +36,8 @@ def _leaves(tree):
 
 
 def _zeros(tree):
-    return {k: _zeros(a) if isinstance(a, dict) else
-            torch.zeros(a.shape, dtype=torch.float32, device=a.device) for k, a in tree.items()}
+    return {k: _zeros(a) if isinstance(a, dict) else torch.zeros_like(a, dtype=torch.float32)
+            for k, a in tree.items()}
 
 
 def adamw_init(params) -> AdamWState:

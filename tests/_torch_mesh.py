@@ -270,3 +270,86 @@ def train_qcomm(arch: str, bits: int, steps: int = 8, device="cpu"):
 def _leaves(tree):
     for _, v in sorted(tree.items()):
         yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def sharded_forward(arch: str, overrides: dict, rows: int = 8, seq: int = 32):
+    """The reduced ``arch`` (``overrides`` replaced) forward in float32 on the
+    default group's 4 ranks as a (2, 2) ("data", "model") ``DeviceMesh``
+    under the single-pod rules: every parameter distributed by
+    ``tree_param_specs``, the seeded (rows, seq) tokens by rows.  Returns
+    the gathered logits and aux (the same on every rank)."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_model
+    from repro_torch.models.sharding import (logical_rules, rules_single_pod, to_placements,
+                                             tree_param_specs)
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
+    params = init_model(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (rows, seq)).astype(np.int32))
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+
+    def place(tree, specs):
+        return {k: place(v, specs[k]) if isinstance(v, dict) else
+                distribute_tensor(v, mesh, to_placements(specs[k], mesh)) for k, v in tree.items()}
+
+    with logical_rules(rules_single_pod()):
+        sharded = place(params, tree_param_specs(params, mesh))
+        batch = {"tokens": distribute_tensor(toks, mesh, to_placements(("data", None), mesh))}
+        with implicit_replication():
+            logits, aux = forward(sharded, cfg, batch, dtype=torch.float32)
+    full = {k: v.full_tensor() if isinstance(v, DTensor) else v for k, v in aux.items()}
+    return {"logits": logits.full_tensor(), "aux": full, "sharded": isinstance(logits, DTensor)}
+
+
+def sharded_train(arch: str, bits: int, steps: int = 8):
+    """The reduced ``arch`` trained ``steps`` steps on the default group's 4
+    ranks as a (2, 1, 2) ("pod", "data", "model") ``DeviceMesh`` under the
+    multi-pod rules, the gradients reduced over the pod axis with
+    ``qcomm_bits=bits``, on the batch of
+    ``tests/test_qcomm.py`` (seeded token rows, labels the tokens) split by
+    rows over the pods.  Every step's loss and a digest of the final
+    params."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_train_state, make_train_step
+    from repro_torch.models.sharding import (logical_rules, rules_multi_pod, to_placements,
+                                             tree_param_specs)
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(arch).reduced()
+    params, _ = init_train_state(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, 32)).astype(np.int32))
+    mesh = init_device_mesh("cpu", (2, 1, 2), mesh_dim_names=("pod", "data", "model"))
+
+    def place(tree, specs):
+        return {k: place(v, specs[k]) if isinstance(v, dict) else
+                distribute_tensor(v, mesh, to_placements(specs[k], mesh)) for k, v in tree.items()}
+
+    def full(v):
+        return v.full_tensor() if isinstance(v, DTensor) else v
+
+    losses = []
+    with logical_rules(rules_multi_pod()), implicit_replication():
+        params = place(params, tree_param_specs(params, mesh))
+        opt = adamw_init(params)
+        rows = to_placements((("pod", "data"), None), mesh)
+        batch = {"tokens": distribute_tensor(toks, mesh, rows),
+                 "labels": distribute_tensor(toks, mesh, rows)}
+        step = make_train_step(cfg, qcomm_bits=bits, group=mesh.get_group("pod") if bits else None,
+                               peak_lr=1e-3, warmup=2, total_steps=12)
+        for _ in range(steps):
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(full(m["loss"])))
+        digest = torch.stack([full(p).double().sum() for p in _leaves(params)])
+    return {"losses": losses, "digest": digest}

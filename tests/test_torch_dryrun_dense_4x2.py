@@ -1,0 +1,15 @@
+"""The dry run's per-device matmul FLOPs for reduced gemma-7b (a dense arch)
+against the reference's ``analyze_hlo`` on a 4 x 2 ("data", "model") mesh
+— the tolerance, the readings and the one stated gap in
+``tests/_torch_dryrun.py`` (the other mesh:
+``test_torch_dryrun_dense.py``)."""
+import pytest
+
+pytest.importorskip("torch")
+from _torch_threads import one_thread  # noqa: E402,F401
+from _torch_dryrun import check  # noqa: E402
+
+
+def test_per_device_flops_match_the_reference():
+    ref, port, excess = check('gemma-7b', (4, 2))
+    assert excess == 0.0  # 2 KV heads split over a 2-wide model axis

@@ -1215,3 +1215,46 @@ def test_full_width_step_stays_within_its_state(cuda):
           f"{bound / 1e9:.3f} GB (params {P / 1e9:.3f} GB, stacked layers bf16 "
           f"{stacked / 1e9:.3f} GB)")
     assert above <= bound, (above / 1e9, bound / 1e9, P / 1e9)
+
+
+# ---- decode_attn as a custom op, and the dry run's trace of it ----------------
+
+_OP_CASES = [
+    (2, 1000, 4, 8, 128, torch.float32, torch.bfloat16, None, 999, False),
+    (2, 8192, 4, 2, 256, torch.float32, torch.bfloat16, 4096, 10000, True),
+    (3, 333, 2, 3, 40, torch.float32, torch.float32, None, 300, False),
+    (2, 130, 1, 12, 16, torch.bfloat16, torch.float32, 64, 120, True),
+]
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,q_dtype,kv_dtype,window,pos,ring", _OP_CASES)
+def test_decode_attn_custom_op(cuda, B, S, KV, G, hd, q_dtype, kv_dtype, window, pos, ring):
+    """``torch.ops.repro_torch.decode_attn`` called directly equals the
+    wrapper's launch bit for bit and the plain version within 1e-5 max|V|,
+    one launch a call; under a fake mode on ``cuda`` tensors the wrapper
+    traces the op and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.roofline import CostCounter
+
+    q, K, V, kpos = decode_attn_operands(B, S, KV, G, hd, pos=pos, q_dtype=q_dtype,
+                                         kv_dtype=kv_dtype, ring=ring, seed=S, device=cuda)
+    fam = runtime.family("decode_attn")
+    before = fam.launches
+    direct = torch.ops.repro_torch.decode_attn(q, K, V, kpos, None, pos, window, None)
+    via = decode_attn_cuda(q, K, V, kpos, pos, window=window)
+    torch.cuda.synchronize()
+    assert fam.launches == before + 2
+    assert torch.equal(direct, via)
+    want = decode_attn_plain(q, K, V, kpos, pos, window=window)
+    assert float((direct - want).abs().max()) <= 1e-5 * float(V.float().abs().max())
+    before = fam.launches
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fq, fK, fV, fk = (mode.from_tensor(t) for t in (q, K, V, kpos))
+        fpos = torch.empty((), dtype=torch.int32, device="cuda")
+        with CostCounter() as counter:
+            out = decode_attn_cuda(fq, fK, fV, fk, fpos, window=window)
+    assert fam.launches == before
+    assert tuple(out.shape) == (B, KV, G, hd) and out.dtype == torch.float32
+    assert counter.calls == {"repro_torch::decode_attn": 1}
+    assert counter.cost.flops == 4 * B * KV * G * S * hd
