@@ -45,7 +45,9 @@ into a pass):
    (small, flat, wide, long) with its tile whole and one row or column
    past it, and at the wide variant with p odd, W = 4, width-0 dims and
    masked rows — every ``qgram`` and ``qgram_packed`` case checks the
-   variant the plan names and the same bits on two launches;
+   variant the plan names and the same bits on two launches, and a timed
+   ``qgram_packed`` or fleet epilogue case times the autotune cache's plan,
+   the paths' (checked against the plain version too);
    ``decode_attn`` within 1e-5 max|V| at the bench shape B = 8, S = 8192,
    KV = 4, G = 8, hd = 128 with bf16 K/V, a gemma2-2b local layer (G = 2,
    hd = 256, window 4096) on a permuted ring cache and on a ring in slot
@@ -259,6 +261,16 @@ into a pass):
       on the card, FLOPs equal); ``python -m repro_torch.launch.dryrun`` on
       the reference's CLI test combo and gemma2-2b train_4k on both
       production meshes (``[dryrun]`` lines).
+   p. the autotune cache (``autotune_phase``).  ``REPRO_TUNE_CACHE`` is
+      set at the start to a new ``build/chip_smoke_autotune.json``, so every
+      run sweeps cold and the phases above run the tuned plans.  At
+      ``TUNE_QGRAM``'s three ``qgram_packed`` calls and ``TUNE_FLEET``'s
+      three fleet launches, every feasible candidate held against the plain
+      version (``TOL`` of scale; ``epilogue_fleet_error_bound``) and timed,
+      the winner and the pure plan printed beside them; then a child
+      process on the same file: zero sweeps and the same winners; on an
+      empty file one sweep a key, and launch counts that hold only its
+      calls (``[autotune]`` lines).
 5. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -268,6 +280,7 @@ the script fails before printing any result.  It imports nothing of JAX.
 import itertools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -1821,6 +1834,36 @@ def _hold_recorded(tag, call):
     check(err <= tol, f"decode {tag}: kernel and plain apart {err:.3e} > {tol:.3e}")
 
 
+def _sentinel_trace(tag, run, attempts=3):
+    """(the device events of ``run()`` in start order, its host seconds)
+    under ``torch.profiler``.  256 sentinel kernels lead the trace: the
+    profiler drops a trace's first records, more of them the longer the
+    process has run (``op_walk.kernel_trace``).  A trace that lost every
+    sentinel may have lost ``run``'s own records too: it is taken again, up
+    to ``attempts`` traces, and then the run fails."""
+    import torch
+
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(256):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        lead = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        print(f"[{tag}] the profiler dropped {256 - len(lead)} of the 256 leading sentinel "
+              "records", flush=True)
+        if lead:
+            return events[lead[-1] + 1:], wall
+    fail(f"{tag}: the profiler dropped every sentinel in {attempts} traces")
+
+
 def _decode_launch_check(tag, counts, want):
     """Launches from zero of one decode run: ``decode_attn`` exactly ``want``,
     every other kernel none."""
@@ -1964,26 +2007,16 @@ def decode_phase(dev, smi):
     with torch.no_grad():
         decode_step(params, cfg, state, tok, positions[0])
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(256):
-                torch.cuda._sleep(1)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for p in range(1, 4):
-                decode_step(params, cfg, state, tok, positions[p])
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) / 3 * 1e3
+        events, wall = _sentinel_trace("decode profile", lambda: [
+            decode_step(params, cfg, state, tok, positions[p]) for p in range(1, 4)])
+        wall = wall / 3 * 1e3
         torch.cuda.set_sync_debug_mode("error")  # a full-width step never waits on the card
         try:
             decode_step(params, cfg, state, tok, positions[4])
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    lead = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-    check(bool(lead), "decode profile: the profiler dropped every sentinel")
     groups, names = {}, {}
-    for e in events[lead[-1] + 1:]:
+    for e in events:
         low = e.name.lower()
         g = ("decode_attn" if "decode_attn" in low else
              "matmul" if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "xmma"))
@@ -2261,22 +2294,13 @@ def train_phase(dev, smi, full=None, archs=None, cli=True, fall=TRAIN_FALL):
     check(losses[-1] < losses[0] - fall,
           f"train full: the loss fell {losses[0] - losses[-1]:.4f} < {fall}")
     if cuda:  # where a warm step's time goes: one more step under torch.profiler
-        sync()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(256):  # sentinels: the profiler drops a trace's first records
-                torch.cuda._sleep(1)
-            sync()
-            t0 = time.perf_counter()
+        def one_step():
+            nonlocal params, opt
             params, opt, _ = step(params, opt, batch)
-            sync()
-            wall = time.perf_counter() - t0
-        events = sorted((e for e in prof.events()
-                         if e.device_type == torch.autograd.DeviceType.CUDA),
-                        key=lambda e: e.time_range.start)
-        lead = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
-        check(bool(lead), "train profile: the profiler dropped every sentinel")
+
+        events, wall = _sentinel_trace("train profile", one_step)
         groups, names = {}, {}
-        for e in events[lead[-1] + 1:]:
+        for e in events:
             low = e.name.lower()
             g = ("matmul" if any(t in low for t in ("gemm", "gemv", "nvjet", "cutlass", "xmma"))
                  else "reduce" if "reduce" in low else "elementwise" if "elementwise" in low
@@ -2600,6 +2624,182 @@ def dryrun_phase(dev, smi, cli=DRY_CLI, reduced=False):
     return path
 
 
+# phase p: the autotune cache at the paths' shapes (R = 24 over d = 21, 12 bits
+# a dimension at most: one word a row, 4096-entry tables)
+TUNE_QGRAM = (  # (tag, m, n, p, d, R): qgram_packed's calls
+    ("Fig. 6 center fit 39 x 25 x 25", 39, 25, 25, 21, 24),
+    ("broadcast fit 40 x 25 x 1000", 40, 25, 1000, 21, 24),
+    ("40 x 1000 x 4449", 40, 1000, 4449, 21, 24),
+)
+TUNE_FLEET = (  # (tag, T, m, t, K): epilogue_fleet's launches
+    ("serve_gp flush T 4, t 128, K 50", 4, 40, 128, 50),
+    ("smoke flush T 16, t 16, K 25", 16, 40, 16, 25),
+    ("serve-sized T 8, t 128, K 25", 8, 40, 128, 25),
+)
+
+
+def _tune_operands(dev, m, n, p, d, R, seed):
+    """``qgram_packed`` operands of one call from a seed: R bits given one
+    at a time to random dimensions (12 at most), codes, 4096-entry tables,
+    a projection per machine and every row valid."""
+    import torch
+
+    from repro_torch.core import torch_scheme as TS
+
+    g = torch.Generator().manual_seed(seed)
+    rates = torch.zeros(m, d, dtype=torch.int64)
+    for _ in range(R):
+        j = torch.randint(d, (m,), generator=g)
+        rates[torch.arange(m), j] = torch.clamp(rates[torch.arange(m), j] + 1, max=12)
+    codes = (torch.rand(m, n, d, generator=g) * (2.0 ** rates[:, None, :])).long()
+    words = TS.pack_codes(codes, rates, total_bits=R)
+    cents = torch.randn(m, d, 4096, generator=g)
+    proj = torch.randn(m, p, d, generator=g)
+    return [t.to(dev) for t in (words, rates.int(), cents, proj, torch.ones(m, n))]
+
+
+def autotune_winners(dev):
+    """The plan of each ``TUNE_QGRAM`` and ``TUNE_FLEET`` shape as the paths
+    resolve it (a ``qgram_packed_cuda`` call, then its ``tuned_plan``; a
+    ``fleet_epilogue_plan``), with this process's sweeps and launches."""
+    import torch
+
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.epilogue.ops import fleet_epilogue_plan
+    from repro_torch.kernels.qgram.ops import qgram_packed_cuda, tuned_plan
+
+    wins = []
+    for _, m, n, p, d, R in TUNE_QGRAM:
+        ops = _tune_operands(dev, m, n, p, d, R, seed=m + n + p)
+        qgram_packed_cuda(*ops[:4], total_bits=R, mask=ops[4])
+        wins.append(list(tuned_plan(*ops[:4], total_bits=R, mask=ops[4])))
+    for _, T, m, t, K in TUNE_FLEET:
+        wins.append(list(fleet_epilogue_plan(T, m, t, K, fuse="kl", device=dev)))
+    torch.cuda.synchronize()
+    return {"wins": wins, "sweeps": runtime.sweep_count(), "launches": runtime.launches()}
+
+
+def autotune_child(fresh: str):
+    """Phase p's second process: the winners on the parent's cache file
+    (``REPRO_TUNE_CACHE``), then on the empty file ``fresh``, each with its
+    sweeps and launches; one JSON line."""
+    import torch
+
+    from repro_torch.kernels import runtime
+
+    dev = torch.device("cuda")
+    warm = autotune_winners(dev)
+    os.environ["REPRO_TUNE_CACHE"] = fresh
+    runtime.clear_cache_memory()
+    runtime.reset_launches()
+    swept = runtime.sweep_count()
+    cold = autotune_winners(dev)
+    cold["sweeps"] -= swept
+    print(json.dumps({"warm": warm, "cold": cold}), flush=True)
+
+
+def autotune_phase(dev, smi, device_ms):
+    """4p: the autotune cache.  At each ``TUNE_QGRAM`` / ``TUNE_FLEET``
+    shape every feasible candidate on the card, held against the plain
+    version (``qgram_packed`` within ``TOL`` of scale, ``epilogue_fleet``
+    within ``epilogue_fleet_error_bound``) and timed (``device_ms``); the
+    winner and the pure plan beside it.  Then a child process on the same
+    cache file: zero sweeps, the same winners; and on an empty file, one
+    sweep a key while the launch counts hold only its calls."""
+    import torch
+
+    from repro_torch.core import torch_scheme as TS
+    from repro_torch.kernels import runtime
+    from repro_torch.kernels.epilogue.cases import epilogue_fleet_operands
+    from repro_torch.kernels.epilogue.ops import epilogue_fleet_cuda, plan_fleet
+    from repro_torch.kernels.epilogue.ref import (
+        epilogue_fleet_error_bound, epilogue_moments_fleet_plain,
+    )
+    from repro_torch.kernels.qgram.ops import plan, qgram_packed_cuda, qgram_packed_plain
+    from repro_torch.kernels.qgram.ref import decode_gathered
+
+    print(f"[autotune] {smi}; cache {os.environ['REPRO_TUNE_CACHE']}", flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sweeps = runtime.sweep_count()
+    parent = autotune_winners(dev)
+    rows = []
+    for (tag, m, n, p, d, R), win in zip(TUNE_QGRAM, parent["wins"]):
+        words, rates, cents, proj, mask = _tune_operands(dev, m, n, p, d, R, seed=m + n + p)
+        want = qgram_packed_plain(words, rates, cents, proj, total_bits=R, mask=mask)
+        xhat = decode_gathered(TS.unpack_codes(words, rates, total_bits=R), cents)
+        scale = max(1.0, float((xhat.abs() @ proj.abs().transpose(-1, -2)).max()))
+        times = {}
+        for (v,) in runtime.tune_candidates("qgram_packed"):
+            try:
+                pl = plan(m, n, p, d, words.shape[-1], cents.shape[-1], sms, variant=v)
+            except ValueError:
+                continue
+            run = lambda pl=pl: qgram_packed_cuda(words, rates, cents, proj, total_bits=R,
+                                                  mask=mask, plan=pl)
+            err = float((run() - want).abs().max())
+            check(err <= TOL * scale, f"autotune qgram_packed {tag} {v}: error {err:.3e} "
+                  f"above {TOL * scale:.3e}")
+            times[f"{v}/{pl.walk}"] = device_ms(run, 5 if n * p > 100_000 else 100)
+        pure = plan(m, n, p, d, words.shape[-1], cents.shape[-1], sms)
+        rows.append(("qgram_packed", tag, times, f"{win[0]}/{win[1]}",
+                     f"{pure.variant}/{pure.walk}"))
+    for (tag, T, m, t, K), win in zip(TUNE_FLEET, parent["wins"][len(TUNE_QGRAM):]):
+        ops = epilogue_fleet_operands(T, m, t, K, seed=T + m + t + K, device=dev)
+        want = epilogue_moments_fleet_plain(*ops, fuse="kl")
+        bound = epilogue_fleet_error_bound(*ops, fuse="kl")
+        times = {}
+        for tile in runtime.tune_candidates("epilogue_fleet"):
+            try:
+                pl = plan_fleet(T, m, t, K, sms, tile=tile)
+            except ValueError:
+                continue
+            run = lambda pl=pl: epilogue_fleet_cuda(*ops, fuse="kl", plan=pl)
+            got = run()
+            worst = float(((got - want).abs() / bound).max())
+            check(bool(torch.isfinite(got).all()) and worst <= 1.0,
+                  f"autotune epilogue_fleet {tag} {tile}: worst err/bound {worst:.3e}")
+            times[f"{pl.variant}/{pl.tt}/{pl.groups}"] = device_ms(run, 100)
+        pure = plan_fleet(T, m, t, K, sms)
+        rows.append(("epilogue_fleet", tag, times, "/".join(map(str, win)),
+                     f"{pure.variant}/{pure.tt}/{pure.groups}"))
+    for family, tag, times, win, pure in rows:
+        check(win in times and pure in times,
+              f"autotune {family} {tag}: winner {win} / plan {pure} not among {list(times)}")
+        print(f"[autotune] {family:14s} {tag:32s} "
+              + "  ".join(f"{c} {ms:.4f}" for c, ms in times.items())
+              + f" ms; winner {win} {times[win]:.4f} ms, pure plan {pure} {times[pure]:.4f} ms "
+              f"({times[win] / times[pure]:.3f}x)", flush=True)
+    print(f"[autotune] this process: {runtime.sweep_count()} sweeps in all, "
+          f"{runtime.sweep_count() - sweeps} in this phase", flush=True)
+    # a second process: the same file (warm), then an empty one (cold)
+    fresh = ROOT / "build" / "chip_smoke_autotune_cold.json"
+    fresh.unlink(missing_ok=True)
+    code = (f"import sys\nsys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+            f"import chip_smoke\nchip_smoke.autotune_child({str(fresh)!r})\n")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       timeout=600)
+    check(r.returncode == 0, f"autotune child exited {r.returncode}: {r.stderr[-3000:]}")
+    child = json.loads(r.stdout.strip().splitlines()[-1])
+    warm, cold = child["warm"], child["cold"]
+    keys = len(TUNE_QGRAM) + len(TUNE_FLEET)
+    print(f"[autotune] child ({time.perf_counter() - t0:.1f} s): on this run's file "
+          f"{warm['sweeps']} sweeps, winners {'the same' if warm['wins'] == parent['wins'] else warm['wins']}; "
+          f"on an empty file {cold['sweeps']} sweeps for {keys} keys, launches "
+          f"qgram_packed {cold['launches']['qgram_packed']} epilogue_fleet "
+          f"{cold['launches']['epilogue_fleet']}, winners {cold['wins']}", flush=True)
+    check(warm["sweeps"] == 0 and warm["wins"] == parent["wins"],
+          f"autotune: the warm child swept {warm['sweeps']} times, winners {warm['wins']} "
+          f"against {parent['wins']}")
+    check(cold["sweeps"] == keys, f"autotune: the cold child swept {cold['sweeps']} times "
+          f"for {keys} keys")
+    for got in (warm, cold):
+        check(got["launches"]["qgram_packed"] == len(TUNE_QGRAM)
+              and got["launches"]["epilogue_fleet"] == 0,
+              f"autotune: the child's launches {got['launches']} count its sweeps")
+    fresh.unlink(missing_ok=True)
+
+
 def main():
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a checkout")
@@ -2609,6 +2809,12 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs the card")
+    # a fresh autotune cache under the ignored build/: every run sweeps cold
+    # and reads nothing of an earlier run's (its child processes inherit it)
+    tune_cache = ROOT / "build" / "chip_smoke_autotune.json"
+    tune_cache.parent.mkdir(exist_ok=True)
+    tune_cache.unlink(missing_ok=True)
+    os.environ["REPRO_TUNE_CACHE"] = str(tune_cache)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2635,6 +2841,7 @@ def main():
         qgram_packed_plain, qgram_plain,
     )
     from repro_torch.kernels.qgram.ops import plan as qgram_plan
+    from repro_torch.kernels.qgram.ops import tuned_plan as qgram_tuned_plan
     from repro_torch.kernels.qgram.ref import decode_gathered
     from repro_torch.kernels.quant.cases import (
         ENCODE_TABLE_KINDS, encode_operands, qgram_operands, quant_operands,
@@ -2648,7 +2855,8 @@ def main():
     from repro_torch.kernels.decode_attn.ops import plan as attn_plan
     from repro_torch.kernels.epilogue.cases import epilogue_fleet_operands, epilogue_operands
     from repro_torch.kernels.epilogue.ops import (
-        epilogue_cuda, epilogue_fleet_cuda, epilogue_moments, plan, plan_fleet,
+        epilogue_cuda, epilogue_fleet_cuda, epilogue_moments, fleet_epilogue_plan, plan,
+        plan_fleet,
     )
     from repro_torch.kernels.epilogue.ref import (
         EPILOGUE_FUSES, epilogue_error_bound, epilogue_fleet_error_bound,
@@ -2808,8 +3016,9 @@ def main():
         pl = qgram_plan(m, n, p, d, words.shape[-1], cents.shape[-1], sms)
         check(variant is None or pl.variant == variant,
               f"qgram_packed {tag}: plan {pl}, not the {variant} variant")
-        got = qgram_packed_cuda(words, rates, cents, proj, total_bits=R, mask=mask)
-        again = qgram_packed_cuda(words, rates, cents, proj, total_bits=R, mask=mask)
+        # the plan's variant checked; the tuned plan, the paths' call, timed
+        got = qgram_packed_cuda(words, rates, cents, proj, total_bits=R, mask=mask, plan=pl)
+        again = qgram_packed_cuda(words, rates, cents, proj, total_bits=R, mask=mask, plan=pl)
         want = qgram_packed_plain(words, rates, cents, proj, total_bits=R, mask=mask)
         codes = TS.unpack_codes(words, rates, total_bits=R)
         xhat = decode_gathered(codes, cents) * mask[..., None]
@@ -2820,6 +3029,11 @@ def main():
         print(f"[kernel] qgram_packed  {tag:44s} plan {row['plan']} (variant/walk): two "
               "launches give the same bits", flush=True)
         if timed:
+            tuned = qgram_tuned_plan(words, rates, cents, proj, total_bits=R, mask=mask)
+            row["tuned"] = f"{tuned.variant}/{tuned.walk}"
+            row["err"] = max(row["err"], compare(
+                "qgram_packed", f"{tag} tuned {row['tuned']}", qgram_packed_cuda(
+                    words, rates, cents, proj, total_bits=R, mask=mask), want, scale))
             row["ms"] = device_ms(lambda: qgram_packed_cuda(
                 words, rates, cents, proj, total_bits=R, mask=mask), reps)
             row["plain_ms"] = device_ms(lambda: qgram_packed_plain(
@@ -2836,7 +3050,7 @@ def main():
             nbytes = 4 * (words.numel() + rates.numel() + looked_up.numel()
                           + proj.numel() + mask.numel() + m * n * p)
             row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * m * n * p * d)
-            print(f"[time]   qgram_packed  {tag:44s} plan {row['plan']}  kernel {row['ms']:.4f} ms  "
+            print(f"[time]   qgram_packed  {tag:44s} tuned {row['tuned']}  kernel {row['ms']:.4f} ms  "
                   f"plain {row['plain_ms']:.4f} ms  torch.matmul(x̂, proj) "
                   f"{row['matmul_ms']:.4f} ms  bound {row['bound_ms']:.7f} ms "
                   f"({row['bound_by']})", flush=True)
@@ -3010,15 +3224,23 @@ def main():
             check(worst <= 1.0, f"epilogue_fleet {tag} {fuse}: error above the per-tenant bound")
             check(torch.equal(got, single) if same_plan else worst_single <= 1.0,
                   f"epilogue_fleet {tag} {fuse}: a tenant disagrees with the single-tenant kernel")
+            # the tuned plan, as a FleetStack resolves it, within the bound and timed
+            tuned = fleet_epilogue_plan(T, m, t, K, fuse=fuse, device=dev)
+            worst_tuned = float(((epilogue_fleet_cuda(*ops, fuse=fuse, plan=tuned) - want).abs()
+                                 / tol_rows).max())
+            check(worst_tuned <= 1.0, f"epilogue_fleet {tag} {fuse}: tuned plan {tuned} above "
+                  "the per-tenant bound")
             row = {"tag": f"{tag} {fuse}", "err": err}
-            row["ms"] = device_ms(lambda: epilogue_fleet_cuda(*ops, fuse=fuse), reps)
+            row["ms"] = device_ms(lambda: epilogue_fleet_cuda(*ops, fuse=fuse, plan=tuned), reps)
             row["plain_ms"] = device_ms(lambda: epilogue_moments_fleet_plain(*ops, fuse=fuse),
                                         reps)
             row["library_ms"] = None  # no single PyTorch call computes it
-            row["bound_ms"], row["bound_by"] = epi_bound(T, m, t, K, pl)
+            row["bound_ms"], row["bound_by"] = epi_bound(T, m, t, K, tuned)
             print(f"[time]   epilogue_fleet {tag + ' ' + fuse:43s} kernel {row['ms']:.4f} ms  "
                   f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms']:.7f} ms "
-                  f"({row['bound_by']}, {pl.variant}/{pl.tt}/{pl.groups})", flush=True)
+                  f"({row['bound_by']}; tuned {tuned.variant}/{tuned.tt}/{tuned.groups}, "
+                  f"plan_fleet {pl.variant}/{pl.tt}/{pl.groups}; tuned worst err/bound "
+                  f"{worst_tuned:.3e})", flush=True)
             results["epilogue_fleet"].append(row)
             rows.append(row)
         return rows
@@ -3897,6 +4119,12 @@ def main():
     t0 = time.perf_counter()
     path_launches.update(dryrun_phase(dev, smi))
     print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # p. the autotune cache: every candidate at the paths' shapes, the
+    # winners, and a second process on the same cache file
+    t0 = time.perf_counter()
+    autotune_phase(dev, smi, device_ms)
+    print(f"[autotune] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- 5. the kernels line and the result line ---------------------------
     src = "src/repro_torch/kernels/csrc"

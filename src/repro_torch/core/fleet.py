@@ -214,7 +214,8 @@ def _fleet_fused_operands(stack, idx, Xq, avail, proj):
     the per-query solve against ``L_M`` of the single-tenant serve is skipped.
     Returns (finite, noise, G, Ainv, P, walpha, gss, prior, w), the last
     seven contiguous and in the kernel's order."""
-    rows = torch.as_tensor(idx, dtype=torch.long, device=Xq.device)
+    # the rows go up without a stream sync (a warm flush makes none)
+    rows = torch.as_tensor(idx, dtype=torch.long).to(Xq.device, non_blocking=True)
     take = lambda a: a.index_select(0, rows)
     p = GPParams(*(take(a) for a in stack.params))  # each (S,)
     noise = torch.exp(p.log_noise)
@@ -240,19 +241,25 @@ def _fleet_fused_operands(stack, idx, Xq, avail, proj):
     return (finite, noise) + tuple(a.contiguous() for a in ops)
 
 
-def _fleet_predict_fused(stack, idx, Xq, avail, proj):
+def _fleet_predict_fused(stack, idx, Xq, avail, proj, plan=None):
     """Tenant-batched fused serve: the batched operand build, ONE
     ``epilogue_moments_fleet`` launch for every tenant's experts, and the
     fusion's ``finalize`` over the tenant axis (elementwise).  The
     non-finite tripwire applies per tenant row: a hostile query row
-    degrades ITS answer to the prior and touches nothing else."""
-    from ..kernels.epilogue.ops import epilogue_moments_fleet
+    degrades ITS answer to the prior and touches nothing else.  ``plan``:
+    the stack's epilogue plan (None: the pure plan), its expert groups
+    re-derived for this flush's tenant count."""
+    from ..kernels.epilogue.ops import epilogue_moments_fleet, plan_fleet
 
     spec = FUSIONS.get(stack.fuse)
     m = len(stack.fit_lengths)
     finite, noise, G, Ainv, P, walpha, g_ss, prior, w = _fleet_fused_operands(
         stack, idx, Xq, avail, proj)
-    S = epilogue_moments_fleet(G, Ainv, P, walpha, g_ss, prior, w, fuse=stack.fuse)
+    if plan is not None:
+        sms = torch.cuda.get_device_properties(G.device).multi_processor_count
+        plan = plan_fleet(len(idx), m, G.shape[2], G.shape[3], sms, tile=plan[:2])
+    S = epilogue_moments_fleet(G, Ainv, P, walpha, g_ss, prior, w, fuse=stack.fuse,
+                               plan=plan)
     mu, var = spec.finalize(S.transpose(0, 1), m, prior)
     ok = finite & torch.isfinite(mu) & torch.isfinite(var)
     mu = torch.where(ok, mu, torch.zeros_like(mu))
@@ -260,13 +267,13 @@ def _fleet_predict_fused(stack, idx, Xq, avail, proj):
     return mu, var
 
 
-def _fleet_predict_impl(stack, idx, Xq, avail=None, proj=None):
+def _fleet_predict_impl(stack, idx, Xq, avail=None, proj=None, plan=None):
     """The fleet serve: answer tenant rows ``idx`` of the stacked artifact
     ``stack`` for queries ``Xq`` (S, t, d); ``avail`` is None or (S, m);
     ``proj`` is the stack's slot-aligned projector buffer on the fused
-    route and None elsewhere."""
+    route and None elsewhere; ``plan`` the fused route's epilogue plan."""
     if proj is not None:
-        return _fleet_predict_fused(stack, idx, Xq, avail, proj)
+        return _fleet_predict_fused(stack, idx, Xq, avail, proj, plan)
     outs = [base._predict_impl(_row(stack, r), Xq[s], None if avail is None else avail[s])
             for s, r in enumerate(idx)]
     return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
@@ -314,6 +321,7 @@ class FleetStack:
         # admit, none per request
         self.fused = _uses_fused(self.tree)
         self._proj = _projector(self.tree).contiguous() if self.fused else None
+        self._plans: dict = {}  # t -> the fused route's epilogue plan on the card
 
     def __contains__(self, tenant) -> bool:
         return tenant in self._rows
@@ -381,6 +389,23 @@ class FleetStack:
             self._rows.move_to_end(t)
         return np.asarray([self._rows[t] for t in tenants], np.int64)
 
+    def _epilogue_plan(self, t: int):
+        """The fused route's epilogue plan for requests of t points on the
+        card, resolved once for each t through the autotune cache at the
+        stack's launch shape (``slots`` tenants, as the reference's
+        ``_epilogue_block``) and remembered; None off the fused route or
+        off the card."""
+        if self._proj is None or self.tree.device.type != "cuda":
+            return None
+        if t not in self._plans:
+            from ..kernels.epilogue.ops import fleet_epilogue_plan
+
+            m = len(self.tree.fit_lengths)
+            K = int(self.tree.factors["Ainv"].shape[-1])
+            self._plans[t] = fleet_epilogue_plan(self.slots, m, t, K, fuse=self.tree.fuse,
+                                                 device=self.tree.device)
+        return self._plans[t]
+
     def predict(self, tenants, Xq, avail=None):
         """Serve one mixed-tenant micro-batch: on the fused route ONE
         ``epilogue_fleet`` launch for all of it.
@@ -406,7 +431,8 @@ class FleetStack:
                     f"FleetStack.predict: avail must be (S, m) = "
                     f"({idx.shape[0]}, {m}), got {tuple(avail.shape)}"
                 )
-        return _fleet_predict_impl(self.tree, idx.tolist(), Xq, avail, self._proj)
+        return _fleet_predict_impl(self.tree, idx.tolist(), Xq, avail, self._proj,
+                                   self._epilogue_plan(int(Xq.shape[1])))
 
 
 # --------------------------------------------------------------------------

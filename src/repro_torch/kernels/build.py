@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -21,7 +22,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "Built", "build_dir", "build_all", "library"]
+__all__ = ["SOURCES", "Built", "build_dir", "digest", "build_all", "library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("gram", "qgram_packed", "epilogue", "epilogue_fleet", "quant_encode",
@@ -66,12 +67,20 @@ def _nvcc() -> str:
     )
 
 
-def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+@functools.lru_cache(maxsize=None)
+def digest(name: str) -> str:
+    """The hash of one library's source, the headers and the flags (read
+    once a process): its file name carries it, and the autotune cache's
+    keys name it."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):  # the shared bodies they include
-        digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _target(name: str) -> Path:
+    return build_dir() / f"lib{name}-{digest(name)}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, Built]:

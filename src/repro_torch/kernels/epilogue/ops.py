@@ -13,7 +13,11 @@ launch count).  The kernels mask ragged t and K themselves, so nothing is
 padded here.  :func:`plan` / :func:`plan_fleet` pick, from the shape, the
 kernel variant (CUDA-core fp32 at small K, 3xTF32 tensor-core products at
 large K), the test-point tile and the expert groups, which the launch sums
-in group order itself.
+in group order itself.  The fleet kernel's (variant, tile) is swept on the
+card and cached by launch shape (:func:`fleet_epilogue_plan`, the
+reference's tuned t-tile through :func:`repro_torch.kernels.runtime.
+autotune`); the single-tenant kernel keeps the pure plan, as the reference
+does not tune it.
 """
 from __future__ import annotations
 
@@ -28,8 +32,8 @@ from .ref import EPILOGUE_FUSES, epilogue_moments_fleet_plain, epilogue_moments_
 
 __all__ = ["epilogue_moments", "epilogue_cuda", "epilogue_moments_plain",
            "epilogue_moments_fleet", "epilogue_fleet_cuda", "epilogue_moments_fleet_plain",
-           "Plan", "plan", "plan_fleet", "smem_bytes", "fleet_epilogue_block", "SMALL_K", "MMA_POINTS",
-           "VARIANTS", "FAMILY", "FLEET_FAMILY"]
+           "Plan", "plan", "plan_fleet", "smem_bytes", "fleet_epilogue_plan",
+           "fleet_epilogue_block", "SMALL_K", "MMA_POINTS", "VARIANTS", "FAMILY", "FLEET_FAMILY"]
 
 SMALL_K = 32  # the largest K of the small (CUDA-core) variant
 MMA_POINTS = 2048  # points (T * t) from which K <= SMALL_K takes the mma variant
@@ -38,6 +42,12 @@ _SMEM = 232_448  # shared memory one block may use on Hopper
 _STATIC = 16  # the kernels' static shared memory (the last-block flag)
 _BLOCKS_PER_SM = 8  # blocks the expert groups aim for on each SM
 VARIANTS = ("small", "mma")
+
+# the fleet kernel's autotune menu: (variant, test points a block), each
+# feasible where csrc/epilogue_body.cuh's launch_epilogue takes it
+runtime.register_tune_candidates(
+    "epilogue_fleet", (("small", 16), ("small", 32), ("mma", 128), ("mma", 32), ("mma", 16))
+)
 
 
 class Plan(NamedTuple):
@@ -90,17 +100,28 @@ def smem_bytes(variant: str, tt: int, K: int) -> int:
     return 4 * floats + _STATIC
 
 
-def plan_fleet(T: int, m: int, t: int, K: int, sms: int = 132) -> Plan:
-    """The plan of a launch over T tenants.  K <= :data:`SMALL_K`: the
-    small variant, a tile of 32 points (16 when t <= 16), unless the launch
-    holds :data:`MMA_POINTS` points or more (T * t), where the mma variant's
-    tile of 128 points is faster (measured; PERF.md section 6).  Larger K:
+def plan_fleet(T: int, m: int, t: int, K: int, sms: int = 132,
+               tile: tuple | None = None) -> Plan:
+    """The plan of a launch over T tenants.  ``tile`` = (variant, tt)
+    forces the tile where the kernel takes it (small: K <= :data:`SMALL_K`,
+    tt 16 or 32; mma: tt 128 at K <= SMALL_K, else 32 or 16; shared memory
+    within the block's) and raises ValueError elsewhere.  Otherwise, K <=
+    SMALL_K: the small variant, a tile of 32 points (16 when t <= 16),
+    unless the launch holds :data:`MMA_POINTS` points or more (T * t),
+    where the mma variant's tile of 128 points is faster (measured;
+    PERF.md section 6).  Larger K:
     the mma variant, a tile of 32 points, 16 once 32 no longer fit shared
     memory (K > 1344), so the tile shrinks as K grows.  Then enough expert
     groups that the grid's T * ceil(t / tt) tiles reach ~8 blocks on each
     of the card's ``sms`` multiprocessors.  Raises for a K no tile fits
     (K > 2688)."""
-    if K <= SMALL_K:
+    if tile is not None:
+        variant, tt = tile
+        ok = {"small": (16, 32) if K <= SMALL_K else (),
+              "mma": (128,) if K <= SMALL_K else (32, 16)}.get(variant, ())
+        if tt not in ok or smem_bytes(variant, tt, K) > _SMEM:
+            raise ValueError(f"epilogue kernel: no {variant}/{tt} tile at K={K}")
+    elif K <= SMALL_K:
         variant, tt = ("mma", 128) if T * t >= MMA_POINTS else ("small", 16 if t <= 16 else 32)
     else:
         variant = "mma"
@@ -123,11 +144,48 @@ def plan(m: int, t: int, K: int, sms: int = 132) -> Plan:
     return plan_fleet(1, m, t, K, sms)
 
 
-def fleet_epilogue_block(T: int, m: int, t: int, K: int, sms: int = 132) -> int:
-    """The t-tile the fleet kernel plans for this launch shape (the
-    reference's autotuned tile; the port's persistent autotune cache is
-    slice 8)."""
-    return plan_fleet(T, m, t, K, sms).tt
+def fleet_epilogue_plan(T: int, m: int, t: int, K: int, *, fuse: str = "kl",
+                        device=None) -> Plan:
+    """The fleet kernel's plan for a launch shape on ``device``: the
+    (variant, tile) cached for its key ((T, m, t, K), float32, the fuse),
+    else a sweep of the menu on zero operands of the launch shape, the
+    winner stored (:func:`runtime.autotune`); :func:`plan_fleet`'s where
+    no sweep may run.  Off the card (``device`` None or not CUDA) the pure
+    :func:`plan_fleet`."""
+    dev = None if device is None else torch.device(device)
+    if dev is None or dev.type != "cuda":
+        return plan_fleet(T, m, t, K)
+    sms = _sms(dev)
+    key = runtime.cache_key("epilogue_fleet", ((T, m, t, K),), torch.float32,
+                            extra=(f"fuse={fuse}",), device=dev)
+    ops = out = None  # made on a miss only
+
+    def measure(cand):
+        nonlocal ops, out
+        try:
+            pl = plan_fleet(T, m, t, K, sms, tile=cand)
+        except ValueError:
+            return None
+        if ops is None:
+            z = lambda *shape, v=0.0: torch.full(shape, v, dtype=torch.float32, device=dev)
+            ops = (z(T, m, t, K), z(T, m, K, K), z(T, m, K, K), z(T, m, K),
+                   z(T, t, v=1.0), z(T, t, v=1.0), z(T, m, v=1.0))
+            out = torch.empty((T, 3, t), dtype=torch.float32, device=dev)
+        fn = _fn("epilogue_fleet", "repro_epilogue_fleet_f32", 8)
+        return runtime.time_candidate(
+            lambda: _launch(fn, fuse, (T, m, t, K), pl, ops, out, "epilogue_fleet"), dev)
+
+    pure = plan_fleet(T, m, t, K, sms)
+    win = runtime.autotune(key, runtime.tune_candidates("epilogue_fleet"), measure,
+                           (pure.variant, pure.tt))
+    return plan_fleet(T, m, t, K, sms, tile=win)
+
+
+def fleet_epilogue_block(T: int, m: int, t: int, K: int, *, fuse: str = "kl",
+                         device=None) -> int:
+    """The t-tile of :func:`fleet_epilogue_plan` (the reference's tuned
+    block)."""
+    return fleet_epilogue_plan(T, m, t, K, fuse=fuse, device=device).tt
 
 
 def _counters(dev, n: int) -> torch.Tensor:
@@ -227,12 +285,12 @@ def epilogue_moments(G, Ainv, P, walpha, gss, prior, w, *, fuse):
     return runtime.choose("epilogue", G)(G, Ainv, P, walpha, gss, prior, w, fuse=fuse)
 
 
-def epilogue_fleet_cuda(G, Ainv, P, walpha, gss, prior, w, *, fuse):
+def epilogue_fleet_cuda(G, Ainv, P, walpha, gss, prior, w, *, fuse, plan=None):
     """Launch the Hopper fleet epilogue kernel: G (T, m, t, K), Ainv and P
     (T, m, K, K), walpha (T, m, K), gss and prior (T, t), w (T, m), all
     fp32, contiguous, on one CUDA device -> (T, 3, t), each tenant summing
-    only its own experts.  Raises on a bad operand or a refused launch;
-    never falls back."""
+    only its own experts; tiled as ``plan`` says (None: :func:`plan_fleet`).
+    Raises on a bad operand or a refused launch; never falls back."""
     ops = {"G": G, "Ainv": Ainv, "P": P, "walpha": walpha, "gss": gss,
            "prior": prior, "w": w}
     _check(fuse, ops, ("T",))
@@ -243,8 +301,10 @@ def epilogue_fleet_cuda(G, Ainv, P, walpha, gss, prior, w, *, fuse):
     if m == 0 or K == 0:
         raise ValueError(f"epilogue kernel: needs m > 0 experts and K > 0, got m={m}, K={K}")
     _need(T <= 65535, f"at most 65535 tenants a launch, got T={T}")
+    if plan is None:
+        plan = plan_fleet(T, m, t, K, _sms(G.device))
     _launch(_fn("epilogue_fleet", "repro_epilogue_fleet_f32", 8), fuse, (T, m, t, K),
-            plan_fleet(T, m, t, K, _sms(G.device)), ops.values(), out, "epilogue_fleet")
+            plan, ops.values(), out, "epilogue_fleet")
     FLEET_FAMILY.launches += 1
     return out
 
@@ -253,9 +313,11 @@ FLEET_FAMILY = runtime.register("epilogue_fleet", epilogue_fleet_cuda,
                                 epilogue_moments_fleet_plain)
 
 
-def epilogue_moments_fleet(G, Ainv, P, walpha, gss, prior, w, *, fuse):
+def epilogue_moments_fleet(G, Ainv, P, walpha, gss, prior, w, *, fuse, plan=None):
     """Per-tenant summed fusion moment rows S (T, 3, t) — the fused serve
     epilogue batched over a leading tenant axis, one kernel launch for the
-    whole mixed-tenant micro-batch.  Callers finish with the fusion's
-    ``finalize`` per tenant."""
-    return runtime.choose("epilogue_fleet", G)(G, Ainv, P, walpha, gss, prior, w, fuse=fuse)
+    whole mixed-tenant micro-batch.  ``plan``: the kernel's (None:
+    :func:`plan_fleet`; the plain version has none).  Callers finish with
+    the fusion's ``finalize`` per tenant."""
+    return runtime.choose("epilogue_fleet", G)(G, Ainv, P, walpha, gss, prior, w, fuse=fuse,
+                                               plan=plan)

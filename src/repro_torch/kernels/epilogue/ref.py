@@ -73,11 +73,12 @@ def epilogue_moments_plain(G, Ainv, P, walpha, gss, prior, w, *, fuse):
     return torch.sum(_moment_rows(fuse, mu, s2, prior, wc), dim=-3)
 
 
-def epilogue_moments_fleet_plain(G, Ainv, P, walpha, gss, prior, w, *, fuse):
+def epilogue_moments_fleet_plain(G, Ainv, P, walpha, gss, prior, w, *, fuse, plan=None):
     """Per-tenant summed moment rows S (T, 3, t): :func:`epilogue_moments_plain`
     batched over a leading tenant axis (G (T, m, t, K), Ainv and P
     (T, m, K, K), walpha (T, m, K), gss and prior (T, t), w (T, m)); each
-    tenant sums only its own experts."""
+    tenant sums only its own experts.  ``plan`` is the kernel's and is
+    ignored here: the plain version has no tile."""
     if G.dim() != 4:
         raise ValueError(f"fleet epilogue: G must be (T, m, t, K), got {tuple(G.shape)}")
     return epilogue_moments_plain(G, Ainv, P, walpha, gss, prior, w, fuse=fuse)

@@ -16,7 +16,10 @@
 
 Both kernels are entry points of one body (``csrc/qgram_body.cuh``);
 :func:`plan` picks its tile configuration and the column tiles a block
-walks from the shape alone.
+walks from the shape alone.  ``qgram_packed``'s tile is swept on the card
+and cached by shape (:func:`tuned_plan`, the reference's block autotune
+through :func:`repro_torch.kernels.runtime.autotune`); ``qgram`` keeps the
+pure plan, as the reference does not tune it.
 """
 from __future__ import annotations
 
@@ -32,8 +35,8 @@ from .ref import qgram_packed_plain, qgram_plain
 
 __all__ = ["qgram_packed", "qgram_packed_batched", "qgram_packed_cuda",
            "qgram_packed_plain", "pack_meta", "FAMILY", "qgram", "qgram_batched",
-           "qgram_cuda", "qgram_plain", "QGRAM_FAMILY", "Plan", "plan", "smem_bytes",
-           "TILES", "DK"]
+           "qgram_cuda", "qgram_plain", "QGRAM_FAMILY", "Plan", "plan", "tuned_plan",
+           "smem_bytes", "TILES", "DK"]
 
 # csrc/qgram_body.cuh's tile configurations: name -> (rows BR, columns BC)
 # of a block's output tile (256 threads each), and the blocks an SM the
@@ -45,6 +48,10 @@ DK = 32  # the body's d-chunk: at d <= DK a block decodes its rows once
 _PITCH = DK + 4  # floats a shared row
 _SMEM = 232_448  # shared memory one block may use on Hopper
 _FEW = 4  # small tiles an SM up to which a call stays on the small tile
+
+# qgram_packed's autotune menu: the body's four tiles (the walk follows
+# from the tile by plan's own rule)
+runtime.register_tune_candidates("qgram_packed", (("small",), ("flat",), ("wide",), ("long",)))
 
 
 class Plan(NamedTuple):
@@ -75,10 +82,12 @@ def _tiles(variant: str, n: int, p: int) -> tuple[int, int]:
 
 
 def plan(m: int, n: int, p: int, d: int, W: int | None = None, C: int = 0,
-         sms: int = 132) -> Plan:
+         sms: int = 132, variant: str | None = None) -> Plan:
     """The body's plan for m machines' (n, p) outputs over d, with ``W``
     packed words a row (None: int32 codes) and C-entry centroid tables, on
-    a card with ``sms`` SMs — a function of its arguments alone.
+    a card with ``sms`` SMs — a function of its arguments alone.  With
+    ``variant`` given, that tile with its walk (ValueError where it does not
+    fit: "long" at d <= DK, shared memory, the grid); else the tile:
 
     - "long" (64 x 128, each d-chunk's table staged in shared memory): d
       longer than one chunk, an output of at least half a wave of its
@@ -93,15 +102,19 @@ def plan(m: int, n: int, p: int, d: int, W: int | None = None, C: int = 0,
     ``_AIM[variant]`` blocks an SM, balanced over the groups.  Raises
     ValueError where a block's staged bytes exceed the card's or the grid
     its limits."""
-    tr, tc = _tiles("long", n, p)
-    if d > DK and 2 * m * tr * tc >= sms and smem_bytes("long", d, W, C) <= _SMEM:
-        variant = "long"
-    elif m * math.prod(_tiles("small", n, p)) <= _FEW * sms:
-        variant = "small"
+    if variant is not None:
+        if variant not in TILES or (variant == "long" and d <= DK):
+            raise ValueError(f"qgram: no {variant!r} tile at d = {d}")
     else:
-        variant = "flat" if n <= 32 else "wide"
-    if smem_bytes(variant, d, W, C) > _SMEM:
-        variant = "small"
+        tr, tc = _tiles("long", n, p)
+        if d > DK and 2 * m * tr * tc >= sms and smem_bytes("long", d, W, C) <= _SMEM:
+            variant = "long"
+        elif m * math.prod(_tiles("small", n, p)) <= _FEW * sms:
+            variant = "small"
+        else:
+            variant = "flat" if n <= 32 else "wide"
+        if smem_bytes(variant, d, W, C) > _SMEM:
+            variant = "small"
     if smem_bytes(variant, d, W, C) > _SMEM:
         raise ValueError(f"qgram: d = {d}, W = {W} need {smem_bytes(variant, d, W, C)} bytes "
                          f"of shared memory a block, more than {_SMEM}")
@@ -146,12 +159,67 @@ def _need(cond: bool, msg: str):
         raise ValueError(f"qgram_packed kernel: {msg}")
 
 
-def qgram_packed_cuda(words, rates, scaled_cents, y, *, total_bits, mask=None):
+def _launch(pl: Plan, words, rates, scaled_cents, y, mask, out):
+    """One launch of plan ``pl`` into ``out`` (checked operands; rates
+    int32).  Counts nothing: the caller does."""
+    m, n, W = words.shape
+    d, C = scaled_cents.shape[1:]
+    p = y.shape[-2]
+    dev = words.device
+    proj_bs = p * d if y.dim() == 3 else 0
+    with torch.cuda.device(dev):
+        err = _fn()(
+            _VARIANT_ID[pl.variant], pl.walk, m, n, p, d, W, C, words.data_ptr(),
+            rates.data_ptr(), scaled_cents.data_ptr(), y.data_ptr(), proj_bs,
+            None if mask is None else mask.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"qgram_packed kernel launch failed: CUDA error {err}")
+
+
+def tuned_plan(words, rates, scaled_cents, y, *, total_bits, mask=None) -> Plan:
+    """The plan of a ``qgram_packed`` call on the card: the tile cached for
+    its key ((m, n, W), (m, d, C), y's shape, int32, the bits, whether a
+    mask is given), else a sweep of the menu on the call's own operands
+    into a scratch output, the winner stored (:func:`runtime.autotune`);
+    :func:`plan`'s tile where no sweep may run.  Operands as
+    :func:`qgram_packed_cuda` takes them."""
+    m, n, W = words.shape
+    d, C = scaled_cents.shape[1:]
+    p = y.shape[-2]
+    dev = words.device
+    sms = _sms(dev)
+    key = runtime.cache_key(
+        "qgram_packed", ((m, n, W), (m, d, C), tuple(y.shape)), torch.int32,
+        bits=total_bits, extra=("mask" if mask is not None else "nomask",), device=dev,
+    )
+    rates = rates.to(torch.int32)
+    scratch = None  # made on a miss only
+
+    def measure(cand):
+        nonlocal scratch
+        try:
+            pl = plan(m, n, p, d, W, C, sms, variant=cand[0])
+        except ValueError:
+            return None
+        if scratch is None:
+            scratch = torch.empty((m, n, p), dtype=torch.float32, device=dev)
+        return runtime.time_candidate(
+            lambda: _launch(pl, words, rates, scaled_cents, y, mask, scratch), dev)
+
+    default = (plan(m, n, p, d, W, C, sms).variant,)
+    win = runtime.autotune(key, runtime.tune_candidates("qgram_packed"), measure, default)
+    return plan(m, n, p, d, W, C, sms, variant=win[0])
+
+
+def qgram_packed_cuda(words, rates, scaled_cents, y, *, total_bits, mask=None, plan=None):
     """Launch the Hopper kernel once over all machines.  words (m, n, W)
     int32, rates (m, d) integer, scaled_cents (m, d, C) fp32, y (p, d) or
     (m, p, d) fp32, mask (m, n) fp32 or None; all contiguous on one CUDA
-    device; tiled as :func:`plan` says.  Raises on a bad operand or a
-    refused launch; never falls back."""
+    device; tiled as ``plan`` says, or where it is None as the autotune
+    cache says (:func:`tuned_plan`).  Raises on a bad operand or a refused
+    launch; never falls back."""
     dev = words.device
     _need(dev.type == "cuda", f"words on {dev}, not a CUDA device")
     _need(words.dim() == 3 and scaled_cents.dim() == 3 and rates.dim() == 2,
@@ -177,17 +245,9 @@ def qgram_packed_cuda(words, rates, scaled_cents, y, *, total_bits, mask=None):
     out = torch.empty((m, n, p), dtype=torch.float32, device=dev)
     if m == 0 or n == 0 or p == 0:
         return out
-    proj_bs = p * d if y.dim() == 3 else 0
-    pl = plan(m, n, p, d, W, C, _sms(dev))
-    with torch.cuda.device(dev):
-        err = _fn()(
-            _VARIANT_ID[pl.variant], pl.walk, m, n, p, d, W, C, words.data_ptr(),
-            rates.data_ptr(), scaled_cents.data_ptr(), y.data_ptr(), proj_bs,
-            None if mask is None else mask.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"qgram_packed kernel launch failed: CUDA error {err}")
+    if plan is None:
+        plan = tuned_plan(words, rates, scaled_cents, y, total_bits=total_bits, mask=mask)
+    _launch(plan, words, rates, scaled_cents, y, mask, out)
     FAMILY.launches += 1
     return out
 

@@ -27,10 +27,11 @@ def qgram_plain(codes, scaled_cents, y):
     return xhat @ y.float().transpose(-1, -2)
 
 
-def qgram_packed_plain(words, rates, scaled_cents, y, *, total_bits, mask=None):
+def qgram_packed_plain(words, rates, scaled_cents, y, *, total_bits, mask=None, plan=None):
     """words (m, n, W) int32 bit patterns; rates (m, d); scaled_cents
     (m, d, C); y (p, d) shared or (m, p, d); mask (m, n) or None ->
-    (m, n, p) fp32."""
+    (m, n, p) fp32.  ``plan`` is the kernel's and is ignored here: the
+    plain version has no tile."""
     codes = torch_scheme.unpack_codes(words, rates, total_bits=total_bits)
     xhat = decode_gathered(codes, scaled_cents.float())
     if mask is not None:

@@ -22,7 +22,10 @@ of scale (each rank fits its scheme alone, where the batched fit solves
 the machines' eigenproblems as one batch, and ten Adam steps follow), one
 all-reduce and no factorization a warm broadcast or poe request.
 """
+import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -56,6 +59,17 @@ from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
 )
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _tune_cache(tmp_path_factory):
+    """The autotune cache of this file's calls: a file of its own, not
+    the user's."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("REPRO_TUNE_CACHE", str(tmp_path_factory.mktemp("tune") / "autotune.json"))
+        runtime.clear_cache_memory()
+        yield
+    runtime.clear_cache_memory()
 
 
 @pytest.fixture
@@ -533,15 +547,17 @@ def test_qgram_packed_variants(cuda, m, n, p, d, R, cap, zero_dims, mask_frac, v
                         torch.cuda.get_device_properties(cuda).multi_processor_count)
     assert pl.variant == variant
     args = [t.to(cuda) for t in (words, rates, cents, proj)]
-    got = qgram_packed_cuda(*args, total_bits=R, mask=mask.to(cuda))
-    again = qgram_packed_cuda(*args, total_bits=R, mask=mask.to(cuda))
+    # the named variant's tile, as plan gives it (the autotune cache's may differ)
+    got = qgram_packed_cuda(*args, total_bits=R, mask=mask.to(cuda), plan=pl)
+    again = qgram_packed_cuda(*args, total_bits=R, mask=mask.to(cuda), plan=pl)
     torch.cuda.synchronize()
     assert torch.equal(got, again)  # two launches, the same bits
     want = qgram_packed_plain(words, rates, cents, proj, total_bits=R, mask=mask)
     _close(got.cpu().numpy(), want.numpy())
     # no mask is every row kept, bit for bit
-    assert torch.equal(qgram_packed_cuda(*args, total_bits=R),
-                       qgram_packed_cuda(*args, total_bits=R, mask=torch.ones_like(mask).to(cuda)))
+    assert torch.equal(qgram_packed_cuda(*args, total_bits=R, plan=pl),
+                       qgram_packed_cuda(*args, total_bits=R, plan=pl,
+                                         mask=torch.ones_like(mask).to(cuda)))
 
 
 @pytest.mark.parametrize("m,n,p,d,bits,max_bits,pad_rows,shared_y,variant", [
@@ -1258,3 +1274,146 @@ def test_decode_attn_custom_op(cuda, B, S, KV, G, hd, q_dtype, kv_dtype, window,
     assert tuple(out.shape) == (B, KV, G, hd) and out.dtype == torch.float32
     assert counter.calls == {"repro_torch::decode_attn": 1}
     assert counter.cost.flops == 4 * B * KV * G * S * hd
+
+
+# ---- the autotune cache on the card: every candidate, the winners, processes --------
+
+from repro_torch.kernels.epilogue import ops as epi_ops  # noqa: E402
+from repro_torch.kernels.qgram import ops as qgram_ops  # noqa: E402
+
+# qgram_packed at the paths' calls (m, n, p, d, R): Fig. 6 center fit, broadcast
+# fit, 40 x 1000 x 4449; epilogue_fleet (T, m, t, K): serve_gp's flush, the
+# smoke's flush, serve-sized requests
+TUNE_QGRAM = [(39, 25, 25, 21, 24), (40, 25, 1000, 21, 24), (40, 1000, 4449, 21, 24)]
+TUNE_FLEET = [(4, 40, 128, 50), (16, 40, 16, 25), (8, 40, 128, 25)]
+
+
+def _sms(cuda):
+    return torch.cuda.get_device_properties(cuda).multi_processor_count
+
+
+@pytest.mark.parametrize("m,n,p,d,R", TUNE_QGRAM)
+def test_qgram_packed_every_candidate_and_the_winner(cuda, m, n, p, d, R):
+    words, rates, cents, proj, mask = _packed(R + n + p, m, n, d, p, R)
+    args = [t.to(cuda) for t in (words, rates, cents, proj)]
+    want = qgram_packed_plain(words, rates, cents, proj, total_bits=R, mask=mask).numpy()
+    feasible = []
+    for (v,) in runtime.tune_candidates("qgram_packed"):
+        try:
+            pl = qgram_ops.plan(m, n, p, d, words.shape[-1], cents.shape[-1], _sms(cuda),
+                                variant=v)
+        except ValueError:
+            continue
+        feasible.append(pl)
+        got = qgram_packed_cuda(*args, total_bits=R, mask=mask.to(cuda), plan=pl)
+        _close(got.cpu().numpy(), want)
+    win = qgram_ops.tuned_plan(*args, total_bits=R, mask=mask.to(cuda))
+    assert win in feasible
+    assert torch.equal(qgram_packed_cuda(*args, total_bits=R, mask=mask.to(cuda)),
+                       qgram_packed_cuda(*args, total_bits=R, mask=mask.to(cuda), plan=win))
+
+
+@pytest.mark.parametrize("T,m,t,K", TUNE_FLEET)
+def test_epilogue_fleet_every_candidate_and_the_winner(cuda, T, m, t, K):
+    ops = epilogue_fleet_operands(T, m, t, K, seed=T + m + t + K, device=cuda)
+    want = epilogue_moments_fleet_plain(*ops, fuse="kl")
+    bound = epilogue_fleet_error_bound(*ops, fuse="kl")
+    feasible = []
+    for tile in runtime.tune_candidates("epilogue_fleet"):
+        try:
+            pl = epi_ops.plan_fleet(T, m, t, K, _sms(cuda), tile=tile)
+        except ValueError:
+            continue
+        feasible.append(pl)
+        got = epilogue_fleet_cuda(*ops, fuse="kl", plan=pl)
+        assert bool(torch.isfinite(got).all())
+        assert float(((got - want).abs() - bound).max()) <= 0, pl
+    assert epi_ops.fleet_epilogue_plan(T, m, t, K, fuse="kl", device=cuda) in feasible
+
+
+def test_a_cold_call_that_sweeps_counts_one_launch(cuda, monkeypatch, tmp_path):
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "autotune.json"))
+    runtime.clear_cache_memory()
+    m, n, p, d, R = TUNE_QGRAM[1]
+    words, rates, cents, proj, mask = [t.to(cuda) for t in _packed(7, m, n, d, p, R)]
+    runtime.reset_launches()
+    before = runtime.sweep_count()
+    qgram_packed_cuda(words, rates, cents, proj, total_bits=R, mask=mask)
+    torch.cuda.synchronize()
+    assert runtime.sweep_count() == before + 1
+    assert runtime.launches()["qgram_packed"] == 1
+    ops = epilogue_fleet_operands(*TUNE_FLEET[0], seed=1, device=cuda)
+    pl = epi_ops.fleet_epilogue_plan(*TUNE_FLEET[0], fuse="kl", device=cuda)
+    epilogue_fleet_cuda(*ops, fuse="kl", plan=pl)
+    torch.cuda.synchronize()
+    assert runtime.sweep_count() == before + 2
+    assert runtime.launches()["epilogue_fleet"] == 1
+    blob = json.load(open(tmp_path / "autotune.json"))
+    assert len(blob["entries"]) == 2 and all(k.split("|")[1].startswith("cuda:")
+                                             for k in blob["entries"])
+    runtime.clear_cache_memory()
+
+
+_TUNE_CHILD = r"""
+import json, sys
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {tests!r})
+import torch
+from repro_torch.kernels import runtime
+from repro_torch.kernels.epilogue.ops import fleet_epilogue_plan
+from repro_torch.kernels.qgram.ops import qgram_packed_cuda, tuned_plan
+from test_torch_gpu import TUNE_FLEET, TUNE_QGRAM, _packed
+
+cuda = torch.device("cuda")
+wins = []
+for m, n, p, d, R in TUNE_QGRAM[:2]:
+    words, rates, cents, proj, mask = [t.to(cuda) for t in _packed(R + n + p, m, n, d, p, R)]
+    qgram_packed_cuda(words, rates, cents, proj, total_bits=R, mask=mask)
+    wins.append(list(tuned_plan(words, rates, cents, proj, total_bits=R, mask=mask)))
+for shape in TUNE_FLEET[:2]:
+    wins.append(list(fleet_epilogue_plan(*shape, fuse="kl", device=cuda)))
+torch.cuda.synchronize()
+print(json.dumps({{"sweeps": runtime.sweep_count(), "wins": wins,
+                  "launches": runtime.launches()}}))
+"""
+
+
+def test_autotune_cold_and_warm_processes_on_the_card(cuda, tmp_path):
+    """A cold process sweeps each key once and its launches count only its
+    calls; a second process on the same file sweeps none and plans alike."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = _TUNE_CHILD.format(src=os.path.join(here, "..", "src"), tests=here)
+    env = dict(os.environ, REPRO_TUNE_CACHE=str(tmp_path / "autotune.json"))
+
+    def run():
+        r = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
+                           text=True, timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        return json.loads(r.stdout.strip().splitlines()[-1])
+
+    cold = run()
+    assert cold["sweeps"] == 4
+    assert cold["launches"]["qgram_packed"] == 2 and cold["launches"]["epilogue_fleet"] == 0
+    warm = run()
+    assert warm["sweeps"] == 0 and warm["wins"] == cold["wins"]
+
+
+def test_warm_fleet_predict_makes_no_host_sync(cuda):
+    parts, Xq = _fig6_like()
+    est = DistributedGP(DGPConfig(protocol="broadcast", fusion="kl", gram_backend="pallas",
+                                  steps=10))
+    art = est.fit(parts=parts)
+    stack = FleetStack({i: scale_targets(art, 0.5 + 0.25 * i) for i in range(4)}, slots=4)
+    X4 = torch.as_tensor(np.stack([Xq[:16]] * 4), device=cuda)
+    cold = stack.predict([3, 0, 1, 3], X4)  # resolves (and sweeps) the stack's plan
+    torch.cuda.synchronize()
+    sweeps = runtime.sweep_count()
+    runtime.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        warm = stack.predict([3, 0, 1, 3], X4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert runtime.sweep_count() == sweeps and runtime.launches()["epilogue_fleet"] == 1
+    assert all(torch.equal(a, b) for a, b in zip(cold, warm))
